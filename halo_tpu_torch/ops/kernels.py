@@ -1,0 +1,124 @@
+"""Build, bind and count the port's CUDA kernels (csrc/kernels.cu).
+
+Route: nvcc builds csrc/kernels.cu into a shared library with a plain C
+interface (`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+-Xcompiler -fPIC`), bound with ctypes.  The build runs at first use, into
+build/halo_tpu_torch/ under the repository root, keyed by a hash of the
+sources, and never when a module is imported: the CPU tests import every
+module on a machine without nvcc.
+
+Each C entry returns cudaGetLastError(); `launch` raises on any non-zero
+value.  LAUNCHES counts launches per kernel: a wrapper adds one exactly
+where it launches its kernel, so a run can show that its main path went
+through every kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+SOURCES = (CSRC / "field.cuh", CSRC / "kernels.cu")
+BUILD_DIR = _PKG.parent / "build" / "halo_tpu_torch"
+
+NAMES = ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan")
+LAUNCHES: dict[str, int] = {name: 0 for name in NAMES}
+
+_vp, _ll, _int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIGNATURES = {
+    "halo_field_mul": [_vp, _vp, _vp, _ll, _int, _int, _vp],
+    "halo_ntt_butterfly": [_vp, _vp, _vp, _ll, _ll, _ll, _ll, _int, _vp],
+    "halo_ec_padd": [_vp, _vp, _vp, _ll, _int, _vp],
+    "halo_ec_pmadd_scan": [_vp, _vp, _vp, _vp, _ll, _ll, _ll, _int, _vp],
+}
+
+_lib = None
+_lock = threading.Lock()
+BUILD_SECONDS: float | None = None
+
+
+def reset_counts() -> None:
+    for name in NAMES:
+        LAUNCHES[name] = 0
+
+
+def counts() -> dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME)")
+    return found
+
+
+def library_path() -> Path:
+    tag = hashlib.sha256(b"".join(p.read_bytes() for p in SOURCES)).hexdigest()[:16]
+    return BUILD_DIR / f"libhalo_kernels-{tag}.so"
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    global _lib, BUILD_SECONDS
+    with _lock:
+        if _lib is not None:
+            return _lib
+        t0 = time.perf_counter()
+        so = library_path()
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                   "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC),
+                   "-o", str(tmp), str(CSRC / "kernels.cu")]
+            res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        BUILD_SECONDS = time.perf_counter() - t0
+        _lib = lib
+        return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry halo_<name> on the current stream; count the launch;
+    raise on a launch error."""
+    lib = build()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, "halo_" + name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def check_cuda(*tensors: torch.Tensor) -> None:
+    """The argument checks every wrapper makes before a launch: int32 word
+    tensors, contiguous, on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {t.device} vs {dev}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"expected torch.int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("expected a contiguous tensor")

@@ -1,0 +1,247 @@
+"""Kernel wrappers and their plain torch versions (port of the host
+wrappers of halo_tpu/ops/pallas_mont.py:772-810).
+
+Each wrapper takes the plain version for tensors on the CPU, and for CUDA
+tensors launches its kernel (ops/kernels.py) or raises; there is no
+fallback.  The plain versions run on any device: chip_smoke.py holds each
+kernel against its plain version on the card.
+
+| wrapper        | kernel (csrc/kernels.cu) | replaces (halo_tpu/ops/pallas_mont.py)         |
+|----------------|--------------------------|------------------------------------------------|
+| field_mul      | k_field_mul              | _mm_kernel :256 (mm_rows), _mulc_kernel :474    |
+|                |                          | (mulc_rows: b broadcast), _canon_kernel :482    |
+| ntt_butterfly  | k_ntt_butterfly          | _bfly_kernel :459 (bfly_rows)                   |
+| ec_padd        | k_ec_padd                | _padd_kernel :261 (padd_rows)                   |
+| ec_pmadd_scan  | k_ec_pmadd_scan          | _pmadd_pack_kernel :355 and the lax.scan around |
+|                |                          | it (halo_tpu/ops/msm2.py:398-417)               |
+
+Field values are canonical Montgomery (8, ...) int32 word rows; points
+are (3, 8, ...) projective (X, Y, Z) rows over the curve's base field.
+The plain EC versions follow the kernels' formulas (RCB 2015 alg. 7 and
+its mixed form, a = 0, b = 5) and batch the independent products of each
+formula level into one multiplication, which gives the same values.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from halo_tpu.fields import R256
+
+from . import ff, kernels
+from .ff import NL, NWORDS
+
+_B = 5  # both Pasta curves: y^2 = x^3 + 5
+
+
+def _is_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
+
+
+# ---------------- field_mul ---------------- #
+
+
+def field_mul_plain(m: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return ff.mont_mul_plain(m, a, b)
+
+
+def field_mul(m: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product a*b*R^-1 mod m on (8, *S) rows.  b has a's shape
+    or holds one element (8 words), which every lane multiplies by (the
+    TPU's mulc_rows); either operand may be the single element."""
+    if a.shape[1:].numel() == 1 and b.shape[1:].numel() != 1:
+        a, b = b, a
+    bcast = b.shape[1:].numel() == 1
+    if not bcast and b.shape != a.shape:
+        raise ValueError(f"field_mul shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    if _is_cpu(a):
+        return field_mul_plain(m, a, b)
+    a = a.contiguous()
+    b = b.contiguous()
+    kernels.check_cuda(a, b)
+    out = torch.empty_like(a)
+    n = a.shape[1:].numel()
+    kernels.launch("field_mul", out.data_ptr(), a.data_ptr(), b.data_ptr(), n,
+                   1 if bcast else 0, ff.field_id(m))
+    return out
+
+
+# ---------------- ntt_butterfly ---------------- #
+
+
+def ntt_butterfly_plain(m: int, x: torch.Tensor, tw: torch.Tensor, half: int,
+                        tw_stride: int) -> torch.Tensor:
+    M = x.shape[1]
+    xl = ff.words_to_limbs(x).reshape(NL, M // (2 * half), 2, half)
+    w = ff.words_to_limbs(tw[:, 0: half * tw_stride: tw_stride])[:, None, :]
+    e, o = xl[:, :, 0], xl[:, :, 1]
+    t = ff.lmul(m, o, w)  # < 1.3m
+    y = torch.stack((e + t, ff.lsub(m, e, t, 2)), dim=2)
+    return ff.limbs_to_words(ff.canon(m, y.reshape(NL, M)))
+
+
+def ntt_butterfly(m: int, x: torch.Tensor, tw: torch.Tensor, half: int,
+                  tw_stride: int) -> torch.Tensor:
+    """One radix-2 DIT stage over (8, M) rows split into blocks of 2*half
+    lanes: (e, o) -> (e + w_j*o, e - w_j*o) with w_j = tw[:, j*tw_stride]."""
+    M = x.shape[1]
+    if x.dim() != 2 or M % (2 * half) or (half - 1) * tw_stride >= tw.shape[1]:
+        raise ValueError(f"bad butterfly shape {tuple(x.shape)}, half={half}")
+    if _is_cpu(x):
+        return ntt_butterfly_plain(m, x, tw, half, tw_stride)
+    x = x.contiguous()
+    tw = tw.contiguous()
+    kernels.check_cuda(x, tw)
+    y = torch.empty_like(x)
+    kernels.launch("ntt_butterfly", y.data_ptr(), x.data_ptr(), tw.data_ptr(), M, half,
+                   tw.shape[1], tw_stride, ff.field_id(m))
+    return y
+
+
+# ---------------- EC: plain formulas on lazy 26-bit limbs ---------------- #
+#
+# Inputs are canonical (an affine y may be p itself after negating 0).
+# The comments give value bounds in units of the base-field modulus p,
+# using p/R < 1/4 + 2^-128: a lazy product is below a*b/R + p.  Every
+# subtraction adds a multiple of p at least as large as its subtrahend.
+
+
+def _cat(*xs):
+    return torch.cat(xs, dim=1)
+
+
+def _split(t, n):
+    return torch.split(t, n, dim=1)
+
+
+def _b3(m: int, like: torch.Tensor) -> torch.Tensor:
+    return ff.words_to_limbs(ff.const_rows(3 * _B * R256 % m, like.device))
+
+
+def _canon_pt(m, X, Y, Z):
+    n = X.shape[1]
+    return _split(ff.canon(m, _cat(X, Y, Z)), n)
+
+
+def _padd_l(m, P, Q):
+    """RCB alg. 7 (a = 0), _padd_kernel's formula."""
+    X1, Y1, Z1 = P
+    X2, Y2, Z2 = Q
+    n = X1.shape[1]
+    b3 = _b3(m, X1).expand(NL, n)
+    t0, t1, t2, m3, m4, m5 = _split(ff.lmul(  # inputs < 2p: outputs < 2.01p
+        m, _cat(X1, Y1, Z1, X1 + Y1, Y1 + Z1, X1 + Z1),
+        _cat(X2, Y2, Z2, X2 + Y2, Y2 + Z2, X2 + Z2)), n)
+    t3 = ff.lsub(m, m3, t0 + t1, 5)  # < 7.1p
+    t4 = ff.lsub(m, m4, t1 + t2, 5)
+    y3 = ff.lsub(m, m5, t0 + t2, 5)
+    t0 = t0 + t0 + t0  # < 6.1p
+    t2, y3 = _split(ff.lmul(m, _cat(t2, y3), _cat(b3, b3)), n)  # < 2.8p
+    z3 = t1 + t2  # < 4.9p
+    t1 = ff.lsub(m, t1, t2, 3)  # < 5.1p
+    p0, p1, p2, p3, p4, p5 = _split(ff.lmul(  # < 7.1p * 7.1p / R + p < 14p
+        m, _cat(t3, t4, t1, y3, z3, t0), _cat(t1, y3, z3, t0, t4, t3)), n)
+    return _canon_pt(m, ff.lsub(m, p0, p1, 16), p2 + p3, p4 + p5)
+
+
+def _pmadd_l(m, P, x2, y2):
+    """Mixed add (Z2 = 1, 13 products), _pmadd_pack_kernel's formula;
+    (x2, y2) is never the identity."""
+    X1, Y1, Z1 = P
+    n = X1.shape[1]
+    b3 = _b3(m, X1).expand(NL, n)
+    t0, t1, m3, u4, u5, t2 = _split(ff.lmul(  # inputs < 2p, < 3p: outputs < 2.6p
+        m, _cat(X1, Y1, X1 + Y1, Z1, Z1, Z1), _cat(x2, y2, x2 + y2, y2, x2, b3)), n)
+    t3 = ff.lsub(m, m3, t0 + t1, 6)  # < 8.6p
+    t4 = Y1 + u4  # < 3.6p
+    t5 = X1 + u5
+    t0 = t0 + t0 + t0  # < 7.8p
+    z3 = t1 + t2  # < 5.2p
+    t1 = ff.lsub(m, t1, t2, 3)  # < 5.6p
+    t5 = ff.lmul(m, t5, b3)  # < 2p
+    p0, p1, p2, p3, p4, p5 = _split(ff.lmul(  # < 8.6p * 7.8p / R + p < 18p
+        m, _cat(t3, t4, t1, t5, z3, t0), _cat(t1, t5, z3, t0, t4, t3)), n)
+    return _canon_pt(m, ff.lsub(m, p0, p1, 18), p2 + p3, p4 + p5)
+
+
+def _pt_to_limbs(P: torch.Tensor):
+    return tuple(ff.words_to_limbs(P[c].reshape(NWORDS, -1)) for c in range(3))
+
+
+def _pt_to_words(Pl, shape) -> torch.Tensor:
+    return torch.stack([ff.limbs_to_words(c).reshape(NWORDS, *shape) for c in Pl])
+
+
+# ---------------- ec_padd ---------------- #
+
+
+def ec_padd_plain(p_mod: int, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+    return _pt_to_words(_padd_l(p_mod, _pt_to_limbs(P), _pt_to_limbs(Q)), P.shape[2:])
+
+
+def ec_padd(p_mod: int, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+    """Complete projective add of (3, 8, *S) point batches over the base
+    field p_mod."""
+    if P.shape != Q.shape or P.shape[:2] != (3, NWORDS):
+        raise ValueError(f"bad point shapes {tuple(P.shape)} {tuple(Q.shape)}")
+    if _is_cpu(P):
+        return ec_padd_plain(p_mod, P, Q)
+    P = P.contiguous()
+    Q = Q.contiguous()
+    kernels.check_cuda(P, Q)
+    out = torch.empty_like(P)
+    kernels.launch("ec_padd", out.data_ptr(), P.data_ptr(), Q.data_ptr(),
+                   P.shape[2:].numel(), ff.field_id(p_mod))
+    return out
+
+
+# ---------------- ec_pmadd_scan ---------------- #
+
+
+def ec_pmadd_scan_plain(p_mod: int, xy: torch.Tensor, idx: torch.Tensor,
+                        neg: torch.Tensor) -> torch.Tensor:
+    R, F = idx.shape
+    xl = ff.words_to_limbs(xy[:NWORDS])
+    yl = ff.words_to_limbs(xy[NWORDS:])
+    zero = torch.zeros((NL, F), dtype=torch.int64, device=xy.device)
+    one = ff.words_to_limbs(ff.mont_one(p_mod, xy.device)).expand(NL, F)
+    acc = (zero, one, zero)
+    outs = []
+    for t in range(R):
+        col = idx[t].long()
+        x2, y2 = xl[:, col], yl[:, col]
+        y2 = torch.where(neg[t].bool(), ff.lsub(p_mod, zero, y2, 1), y2)
+        acc = _pmadd_l(p_mod, acc, x2, y2)
+        outs.append(acc)
+    return torch.stack([
+        ff.limbs_to_words(torch.stack([o[c] for o in outs], dim=1)) for c in range(3)])
+
+
+def ec_pmadd_scan(p_mod: int, xy: torch.Tensor, idx: torch.Tensor,
+                  neg: torch.Tensor) -> torch.Tensor:
+    """Per-lane running sums of sorted affine points.
+
+    xy (16, npts): affine points, x words in rows 0-7 and y words in rows
+    8-15 (Montgomery, never the identity).  idx (R, F) int32 point
+    indices, neg (R, F) bool.  Lane f starts at the identity and at step t
+    adds point idx[t, f] (negated where neg[t, f]); the result (3, 8, R, F)
+    holds every inclusive prefix."""
+    if xy.shape[0] != 2 * NWORDS or idx.shape != neg.shape or idx.dim() != 2:
+        raise ValueError("bad scan shapes")
+    if _is_cpu(xy):
+        return ec_pmadd_scan_plain(p_mod, xy, idx, neg)
+    R, F = idx.shape
+    xy = xy.contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    neg = neg.to(torch.uint8).contiguous()
+    kernels.check_cuda(xy)
+    if idx.device != xy.device or neg.device != xy.device:
+        raise ValueError("scan operands on different devices")
+    out = torch.empty((3, NWORDS, R, F), dtype=torch.int32, device=xy.device)
+    kernels.launch("ec_pmadd_scan", out.data_ptr(), xy.data_ptr(), idx.data_ptr(),
+                   neg.data_ptr(), R, F, xy.shape[1], ff.field_id(p_mod))
+    return out

@@ -1,0 +1,169 @@
+"""Polynomial engine on tensors (port of halo_tpu/plonk/engine.py).
+
+Polynomials are canonical Montgomery word rows: one polynomial of n
+coefficients or evaluations is (8, n); a batch of k is (8, k, n).  The
+NTTs run on the ntt_butterfly kernel, every product on field_mul (on CUDA
+at every size: the JAX engine's 2^15-lane threshold for its rows kernel
+was a TPU compile-memory workaround), add/sub are plain torch, the grand
+product and batch inverse are Hillis-Steele scans over field_mul with one
+host inversion, and commitments are batched SRS MSMs (ops/msm2.py).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from halo_tpu.curves import CurveCfg
+from halo_tpu.fields import R256
+
+from ..ops import ff, msm2, mont, ntt
+
+
+class Engine:
+    def __init__(self, cfg: CurveCfg, device):
+        self.cfg = cfg
+        self.m = cfg.r  # scalar modulus
+        self.device = torch.device(device)
+        self._one = ff.mont_one(self.m, self.device)
+        self._r2 = ff.const_rows(R256 * R256 % self.m, self.device)
+        self._unit = ff.const_rows(1, self.device)
+
+    # ---------------- conversions ---------------- #
+
+    def to_mont(self, t: torch.Tensor) -> torch.Tensor:
+        return mont.field_mul(self.m, t, self._r2)
+
+    def from_mont(self, t: torch.Tensor) -> torch.Tensor:
+        return mont.field_mul(self.m, t, self._unit)
+
+    def to_dev(self, vals: list[int]) -> torch.Tensor:
+        """ints -> (8, n) Montgomery rows."""
+        return self.to_mont(ff.to_rows([v % self.m for v in vals], self.device))
+
+    def to_dev_batch(self, cols: list[list[int]]) -> torch.Tensor:
+        """k lists of n ints -> (8, k, n) Montgomery rows (one transfer)."""
+        flat = [v % self.m for col in cols for v in col]
+        return self.to_dev(flat).reshape(ff.NWORDS, len(cols), -1)
+
+    def to_ints(self, dev: torch.Tensor) -> list[int]:
+        return ff.from_rows(self.from_mont(dev))
+
+    def one(self) -> torch.Tensor:
+        return self._one
+
+    def zeros(self, *shape) -> torch.Tensor:
+        return torch.zeros((ff.NWORDS, *shape), dtype=torch.int32, device=self.device)
+
+    # ---------------- polynomial ops ---------------- #
+
+    def ntt(self, coeffs: torch.Tensor) -> torch.Tensor:
+        return ntt.ntt(self.m, coeffs)
+
+    def intt(self, evals: torch.Tensor) -> torch.Tensor:
+        return ntt.intt(self.m, evals)
+
+    def ntt_extended(self, coeffs: torch.Tensor, big_n: int) -> torch.Tensor:
+        """Evaluate degree-<n coefficients over the size-big_n domain."""
+        pad = big_n - coeffs.shape[-1]
+        z = torch.zeros((*coeffs.shape[:-1], pad), dtype=coeffs.dtype, device=coeffs.device)
+        return ntt.ntt(self.m, torch.cat((coeffs, z), -1))
+
+    def mul(self, a, b):
+        return mont.field_mul(self.m, a, b)
+
+    def add(self, a, b):
+        return ff.add(self.m, a, b)
+
+    def sub(self, a, b):
+        return ff.sub(self.m, a, b)
+
+    def scale(self, a, s: int):
+        return self.mul(a, self.to_dev([s % self.m]))
+
+    def powers(self, x: int, n: int) -> torch.Tensor:
+        """[1, x, x^2, ...] as (8, n) Montgomery rows (host-generated)."""
+        out = [0] * n
+        cur = 1
+        for i in range(n):
+            out[i] = cur
+            cur = cur * x % self.m
+        return self.to_dev(out)
+
+    def exact_sum(self, prods: torch.Tensor) -> list[int]:
+        """Sums over the last axis of (8, *B, n) Montgomery rows -> len(B)
+        canonical ints.  The u32 words sum exactly in int64 (n < 2^31)."""
+        u = (prods.to(torch.int64) & 0xFFFFFFFF).sum(dim=-1)  # (8, *B)
+        cols = u.reshape(ff.NWORDS, -1).T.cpu().tolist()
+        rinv = pow(R256, -1, self.m)
+        return [sum(int(c) << (32 * i) for i, c in enumerate(row)) % self.m * rinv % self.m
+                for row in cols]
+
+    def eval_batch(self, coeffs: torch.Tensor, x: int) -> list[int]:
+        """Evaluate (8, k, n) coefficient batches at x -> k ints."""
+        n = coeffs.shape[-1]
+        pw = self.powers(x, n).reshape(ff.NWORDS, *([1] * (coeffs.dim() - 2)), n)
+        return self.exact_sum(self.mul(coeffs, pw.expand_as(coeffs)))
+
+    def divide_by_vanishing(self, coeffs: torch.Tensor, n: int) -> torch.Tensor:
+        """Exact quotient by X^n - 1 of (8, k*n) coefficients."""
+        k = coeffs.shape[-1] // n
+        chunks = coeffs.reshape(ff.NWORDS, k, n)
+        # q[k-2] = c[k-1]; q[j] = c[j+1] + q[j+1]  (suffix sums of chunks 1..)
+        out = [None] * (k - 1)
+        acc = chunks[:, k - 1]
+        for j in range(k - 2, -1, -1):
+            out[j] = acc
+            if j > 0:
+                acc = self.add(acc, chunks[:, j])
+        return torch.cat(out, -1)
+
+    # ---------------- commitments ---------------- #
+
+    def commit(self, coeffs: torch.Tensor, d: int):
+        """Commit (8, n) Montgomery coefficients against the SRS."""
+        return self.commit_batch(coeffs[:, None], d)[0]
+
+    def commit_batch(self, coeffs: torch.Tensor, d: int) -> list:
+        """Commit an (8, k, n) Montgomery stack -> k affine points, in one
+        batched MSM pipeline."""
+        n = coeffs.shape[-1]
+        assert n <= d + 1, f"degree bound: {n} coeffs > d+1 = {d + 1}"
+        return msm2.msm2_srs_rows_multi(self.cfg, self.from_mont(coeffs))
+
+    # ---------------- sequential algebra ---------------- #
+
+    def _scan_mul(self, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+        """Inclusive product scan along the lanes of (8, n) rows:
+        log2(n) Hillis-Steele rounds of field_mul."""
+        n = x.shape[-1]
+        sh = 1
+        while sh < n:
+            ones = self._one.expand(ff.NWORDS, sh)
+            if reverse:
+                shifted = torch.cat((x[:, sh:], ones), -1)
+            else:
+                shifted = torch.cat((ones, x[:, :-sh]), -1)
+            x = self.mul(x, shifted)
+            sh *= 2
+        return x
+
+    def grand_product(self, ratios: torch.Tensor) -> torch.Tensor:
+        """Permutation accumulator: z[0] = 1, z[i] = z[i-1] * ratios[i]
+        (ratios[0] unused; reference protocol.rs:144-155)."""
+        x = torch.cat((self._one, ratios[:, 1:]), -1)
+        return self._scan_mul(x)
+
+    def batch_inv(self, a: torch.Tensor) -> torch.Tensor:
+        """Elementwise inverse of (8, n) rows (inv(0) = 0): Montgomery's
+        trick with a forward and a backward product scan and one host
+        inversion of the total."""
+        zero = ff.is_zero(a)
+        a_safe = torch.where(zero, self._one, a)
+        prefix = self._scan_mul(a_safe)
+        suffix = self._scan_mul(a_safe, reverse=True)
+        t_int = self.to_ints(prefix[:, -1:])[0]
+        tinv = self.to_dev([pow(t_int, -1, self.m)])
+        pre_excl = torch.cat((self._one, prefix[:, :-1]), -1)
+        suf_excl = torch.cat((suffix[:, 1:], self._one), -1)
+        out = self.mul(self.mul(pre_excl, suf_excl), tinv)
+        return torch.where(zero, torch.zeros_like(out), out)

@@ -1,0 +1,125 @@
+"""halo_tpu_torch.ops.ff (plain field arithmetic on word rows) against
+Python ints and halo_tpu.ops.ff, on the same seeded inputs.
+
+Tolerance: zero.  This is exact modular arithmetic, compared as ints.
+
+The file collects two tests that loop over the checks (ROADMAP, "Tier-1
+budget": pytest-xdist runs the files with the most tests first, and the
+suite's long JAX files must keep starting first).
+"""
+
+import os
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from halo_tpu.fields import FP_MOD, FQ_MOD
+from halo_tpu.ops import ff as jff
+from halo_tpu_torch import convert
+from halo_tpu_torch.ops import ff, mont
+
+# One intra-op thread per pytest-xdist worker: the workers share the cores,
+# and idle OpenMP threads spinning in each would starve the others.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
+R256 = 1 << 256
+N = 256
+MODS = (FP_MOD, FQ_MOD)
+
+
+def _vals(m, seed):
+    rng = random.Random(seed)
+    return [rng.randrange(m) for _ in range(N - 4)] + [0, 1, m - 1, m - 2]
+
+
+def _pair(m):
+    a = _vals(m, 1)
+    b = list(reversed(_vals(m, 2)))
+    return a, b
+
+
+def _check_rows_roundtrip(m):
+    a = _vals(m, 3)
+    rows = ff.to_rows(a, "cpu")
+    assert rows.dtype == torch.int32 and rows.shape == (8, N)
+    assert ff.from_rows(rows) == a
+    assert ff.limbs_to_words(ff.words_to_limbs(rows)).equal(rows)
+    # halo_tpu's (N, 16) limb arrays carry the same values
+    arr = jff.ints_to_array(a)
+    assert convert.limbs16_to_rows(arr).equal(rows)
+    assert np.array_equal(convert.rows_to_limbs16(rows), arr)
+
+
+def _check_add_sub_vs_ints_and_jax(m):
+    a, b = _pair(m)
+    ra, rb = ff.to_rows(a, "cpu"), ff.to_rows(b, "cpu")
+    got_add = ff.from_rows(ff.add(m, ra, rb))
+    got_sub = ff.from_rows(ff.sub(m, ra, rb))
+    assert got_add == [(x + y) % m for x, y in zip(a, b)]
+    assert got_sub == [(x - y) % m for x, y in zip(a, b)]
+    assert ff.from_rows(ff.neg(m, ra)) == [(-x) % m for x in a]
+    ctx = jff.ctx_for(m)
+    aa, bb = jff.ints_to_array(a), jff.ints_to_array(b)
+    assert got_add == jff.array_to_ints(np.asarray(jff.add_jit(ctx, aa, bb)))
+    assert got_sub == jff.array_to_ints(np.asarray(jff.sub_jit(ctx, aa, bb)))
+
+
+def _check_mont_mul_vs_ints_and_jax(m):
+    a, b = _pair(m)
+    got = ff.from_rows(mont.field_mul(m, ff.to_rows(a, "cpu"), ff.to_rows(b, "cpu")))
+    rinv = pow(R256, -1, m)
+    assert got == [x * y * rinv % m for x, y in zip(a, b)]
+    ctx = jff.ctx_for(m)
+    jgot = jff.mont_mul_jit(ctx, jff.ints_to_array(a), jff.ints_to_array(b))
+    assert got == jff.array_to_ints(np.asarray(jgot))
+
+
+def _check_to_mont_vs_jax(m):
+    a = _vals(m, 4)
+    r2 = ff.const_rows(R256 * R256 % m, "cpu")
+    got = ff.from_rows(mont.field_mul(m, ff.to_rows(a, "cpu"), r2))
+    assert got == [x * R256 % m for x in a]
+    jgot = jff.to_mont_jit(jff.ctx_for(m), jff.ints_to_array(a))
+    assert got == jff.array_to_ints(np.asarray(jgot))
+    # the Montgomery rows are the JAX package's Montgomery limbs, bit for bit
+    assert convert.limbs16_to_rows(np.asarray(jgot)).equal(ff.to_rows(got, "cpu"))
+
+
+def _check_lazy_limbs_edge_values(m):
+    """Sums and differences far from canonical (the plain EC formulas keep
+    values lazy up to ~2^259) still reduce exactly."""
+    a, b = _pair(m)
+    la = ff.words_to_limbs(ff.to_rows(a, "cpu"))
+    lb = ff.words_to_limbs(ff.to_rows(b, "cpu"))
+    big = la + la + la + lb  # < 4m
+    prod = ff.lmul(m, big, ff.lsub(m, la, lb, 8))  # (< 4m) * (< 9m)
+    rinv = pow(R256, -1, m)
+    want = [(3 * x + y) * (x - y + 8 * m) * rinv % m for x, y in zip(a, b)]
+    assert ff.from_rows(ff.limbs_to_words(ff.canon(m, prod))) == want
+
+
+def _check_scalar_helpers(m):
+    assert ff.mont_inv(m, 0) == 0
+    x = 12345678901234567890
+    assert ff.mont_inv(m, x) * x % m == 1
+    assert ff.unmont_int(ff.mont_int(x, m), m) == x
+    assert ff.from_rows(ff.mont_one(m, "cpu")) == [R256 % m]
+    with pytest.raises(ValueError):
+        ff.field_id(97)
+
+
+def test_plain_field_ops_vs_ints():
+    for m in MODS:
+        _check_rows_roundtrip(m)
+        _check_lazy_limbs_edge_values(m)
+        _check_scalar_helpers(m)
+
+
+def test_plain_field_ops_vs_ints_and_jax():
+    for m in MODS:
+        _check_add_sub_vs_ints_and_jax(m)
+        _check_mont_mul_vs_ints_and_jax(m)
+        _check_to_mont_vs_jax(m)

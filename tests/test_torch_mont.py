@@ -1,0 +1,241 @@
+"""halo_tpu_torch.ops.mont: the kernel wrappers' plain versions against
+exact ints and halo_tpu.curves, the CUDA field constants against
+halo_tpu.fields, and (on a card only) each kernel against its plain
+version.
+
+Tolerance: zero.  Field values are compared as ints, points as affine
+ints (projective coordinates of equal points may differ by a scale).
+
+The file collects two tests that loop over the checks (ROADMAP, "Tier-1
+budget": pytest-xdist runs the files with the most tests first, and the
+suite's long JAX files must keep starting first).
+"""
+
+import os
+import random
+import re
+from pathlib import Path
+
+import pytest
+import torch
+
+from halo_tpu.curves import PALLAS, VESTA, ec_add, ec_mul
+from halo_tpu.fields import FP_MOD, FQ_MOD
+from halo_tpu_torch.ops import ecrows, ff, kernels, mont
+
+# One intra-op thread per pytest-xdist worker: the workers share the cores,
+# and idle OpenMP threads spinning in each would starve the others.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
+R256 = 1 << 256
+CURVES = (PALLAS, VESTA)
+MODS = (FP_MOD, FQ_MOD)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _vals(m, n, seed):
+    rng = random.Random(seed)
+    return [rng.randrange(m) for _ in range(n - 3)] + [0, 1, m - 1]
+
+
+def _points(cfg, count, seed):
+    rng = random.Random(seed)
+    return [ec_mul(cfg, cfg.generator, rng.randrange(1, cfg.r)) for _ in range(count)]
+
+
+def _proj_rows(cfg, pts, device="cpu"):
+    p = cfg.p
+    X = [0 if q is None else q[0] * R256 % p for q in pts]
+    Y = [R256 % p if q is None else q[1] * R256 % p for q in pts]
+    Z = [0 if q is None else R256 % p for q in pts]
+    return torch.stack([ff.to_rows(v, device) for v in (X, Y, Z)])
+
+
+def _affine(cfg, P):
+    p = cfg.p
+    out = []
+    for X, Y, Z in ecrows.to_projective_ints(P):
+        out.append(None if Z % p == 0 else (X * pow(Z, -1, p) % p, Y * pow(Z, -1, p) % p))
+    return out
+
+
+def _edge_pairs(cfg):
+    """identity, equal, opposite, negated and generic lanes."""
+    a, b, c, d = _points(cfg, 4, 7)
+    neg_a = (a[0], (-a[1]) % cfg.p)
+    P = [None, a, None, a, a, neg_a, b, c]
+    Q = [b, None, None, a, neg_a, neg_a, c, d]
+    return P, Q
+
+
+def _check_field_mul_plain_and_broadcast(m):
+    a, b = _vals(m, 200, 1), _vals(m, 200, 2)
+    ra, rb = ff.to_rows(a, "cpu"), ff.to_rows(b, "cpu")
+    rinv = pow(R256, -1, m)
+    assert ff.from_rows(mont.field_mul(m, ra, rb)) == [x * y * rinv % m for x, y in zip(a, b)]
+    # mulc: one broadcast element, on either side
+    c = b[7]
+    want = [x * c * rinv % m for x in a]
+    assert ff.from_rows(mont.field_mul(m, ra, rb[:, 7:8])) == want
+    assert ff.from_rows(mont.field_mul(m, rb[:, 7:8], ra)) == want
+    with pytest.raises(ValueError):
+        mont.field_mul(m, ra, rb[:, :100])
+
+
+def _check_ntt_butterfly_plain(m):
+    half, blocks, stride = 8, 4, 2
+    x = _vals(m, 2 * half * blocks, 3)
+    tw = _vals(m, half * stride, 4)
+    y = ff.from_rows(mont.ntt_butterfly(m, ff.to_rows(x, "cpu"), ff.to_rows(tw, "cpu"),
+                                        half, stride))
+    rinv = pow(R256, -1, m)
+    for blk in range(blocks):
+        for j in range(half):
+            e, o = x[blk * 2 * half + j], x[blk * 2 * half + j + half]
+            t = o * tw[j * stride] * rinv % m
+            assert y[blk * 2 * half + j] == (e + t) % m
+            assert y[blk * 2 * half + j + half] == (e - t) % m
+
+
+def _check_ec_padd_plain_edge_lanes(cfg):
+    P, Q = _edge_pairs(cfg)
+    S = mont.ec_padd(cfg.p, _proj_rows(cfg, P), _proj_rows(cfg, Q))
+    assert _affine(cfg, S) == [ec_add(cfg, x, y) for x, y in zip(P, Q)]
+
+
+def _check_ec_pmadd_scan_plain(cfg):
+    pts = _points(cfg, 5, 11)
+    a = pts[0]
+    # lanes: generic; equal then opposite (prefix returns to the identity);
+    # negated points
+    pts.append((a[0], (-a[1]) % cfg.p))
+    xy = torch.cat([ff.to_rows([q[0] * R256 % cfg.p for q in pts], "cpu"),
+                    ff.to_rows([q[1] * R256 % cfg.p for q in pts], "cpu")])
+    idx = torch.tensor([[1, 0, 2], [2, 0, 2], [3, 5, 4], [4, 5, 1]], dtype=torch.int32)
+    neg = torch.tensor([[0, 0, 1], [1, 0, 1], [0, 0, 0], [0, 1, 1]], dtype=torch.bool)
+    out = mont.ec_pmadd_scan(cfg.p, xy, idx, neg)
+    assert out.shape == (3, 8, 4, 3)
+    for f in range(3):
+        acc = None
+        for t in range(4):
+            q = pts[idx[t, f]]
+            if neg[t, f]:
+                q = (q[0], (-q[1]) % cfg.p)
+            acc = ec_add(cfg, acc, q)
+            assert _affine(cfg, out[:, :, t, f:f + 1]) == [acc], (t, f)
+
+
+def _check_identity_and_select_rows():
+    ident = ecrows.identity_rows(FQ_MOD, (2, 3), "cpu")
+    assert ident.shape == (3, 8, 2, 3)
+    assert _affine(PALLAS, ident.reshape(3, 8, 6)) == [None] * 6
+    P = _proj_rows(PALLAS, _points(PALLAS, 2, 5))
+    mask = torch.tensor([True, False])
+    sel = ecrows.select_rows(mask, P, ecrows.identity_rows(FQ_MOD, (2,), "cpu"))
+    assert _affine(PALLAS, sel)[1] is None and _affine(PALLAS, sel)[0] == _affine(PALLAS, P)[0]
+
+
+def _check_field_cuh_constants():
+    """The moduli, Montgomery one, 3b*R and -p^-1 mod 2^32 that the CUDA
+    field core hard-codes match halo_tpu.fields."""
+    src = (Path(kernels.CSRC) / "field.cuh").read_text()
+
+    def table(name):
+        body = re.search(rf"{name}\[2\](?:\[8\])? = \{{(.*?)\}};", src, re.S).group(1)
+        words = [int(w, 16) for w in re.findall(r"0x([0-9a-f]+)u", body)]
+        return words
+
+    def to_int(ws):
+        return sum(w << (32 * i) for i, w in enumerate(ws))
+
+    mods, ones, b3s = table("MOD"), table("ONE"), table("B3")
+    for fid, m in enumerate((FP_MOD, FQ_MOD)):
+        assert to_int(mods[8 * fid: 8 * fid + 8]) == m
+        assert to_int(ones[8 * fid: 8 * fid + 8]) == R256 % m
+        assert to_int(b3s[8 * fid: 8 * fid + 8]) == 15 * R256 % m
+        assert table("N0")[fid] == (-pow(m, -1, 1 << 32)) % (1 << 32)
+        assert ff.field_id(m) == fid
+
+
+def _check_wrappers_take_plain_version_only_on_cpu():
+    # a tensor neither on the CPU nor on a CUDA card is refused, never
+    # computed by the plain version
+    a = torch.zeros((8, 4), dtype=torch.int32, device="meta")
+    P = torch.zeros((3, 8, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        mont.field_mul(FP_MOD, a, a)
+    with pytest.raises(ValueError, match="unsupported device"):
+        mont.ntt_butterfly(FP_MOD, a, a, 1, 1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        mont.ec_padd(FQ_MOD, P, P)
+
+
+def _check_kernel_sources_not_built_on_import():
+    # importing the wrappers builds nothing; the library path is derived
+    # from the sources alone
+    assert kernels.library_path().name.startswith("libhalo_kernels-")
+    assert set(kernels.counts()) == {"field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan"}
+
+
+# ---------------- on the card: each kernel against its plain version ----------------
+
+
+def _check_cuda_field_mul(cuda_device, m):
+    a = ff.to_rows(_vals(m, 4099, 1), cuda_device)
+    b = ff.to_rows(_vals(m, 4099, 2), cuda_device)
+    before = kernels.counts()["field_mul"]
+    got = mont.field_mul(m, a, b)
+    assert kernels.counts()["field_mul"] == before + 1
+    assert got.equal(mont.field_mul_plain(m, a, b))
+    assert mont.field_mul(m, a, b[:, :1]).equal(mont.field_mul_plain(m, a, b[:, :1]))
+
+
+def _check_cuda_ntt_butterfly(cuda_device, m):
+    x = ff.to_rows(_vals(m, 4096, 3), cuda_device)
+    tw = ff.to_rows(_vals(m, 1024, 4), cuda_device)
+    for half, stride in ((1, 512), (64, 8), (1024, 1)):
+        got = mont.ntt_butterfly(m, x, tw, half, stride)
+        assert got.equal(mont.ntt_butterfly_plain(m, x, tw, half, stride))
+
+
+def _check_cuda_ec_kernels(cuda_device, cfg):
+    P, Q = _edge_pairs(cfg)
+    Pr, Qr = _proj_rows(cfg, P, cuda_device), _proj_rows(cfg, Q, cuda_device)
+    assert mont.ec_padd(cfg.p, Pr, Qr).equal(mont.ec_padd_plain(cfg.p, Pr, Qr))
+    pts = _points(cfg, 16, 3)
+    xy = torch.cat([ff.to_rows([q[0] * R256 % cfg.p for q in pts], cuda_device),
+                    ff.to_rows([q[1] * R256 % cfg.p for q in pts], cuda_device)])
+    g = torch.Generator().manual_seed(5)
+    idx = torch.randint(0, 16, (6, 300), generator=g, dtype=torch.int32).to(cuda_device)
+    neg = (torch.rand((6, 300), generator=g) < 0.5).to(cuda_device)
+    got = mont.ec_pmadd_scan(cfg.p, xy, idx, neg)
+    assert got.equal(mont.ec_pmadd_scan_plain(cfg.p, xy, idx, neg))
+
+
+def test_plain_versions():
+    for m in MODS:
+        _check_field_mul_plain_and_broadcast(m)
+        _check_ntt_butterfly_plain(m)
+    for cfg in CURVES:
+        _check_ec_padd_plain_edge_lanes(cfg)
+        _check_ec_pmadd_scan_plain(cfg)
+    _check_identity_and_select_rows()
+    _check_field_cuh_constants()
+    _check_wrappers_take_plain_version_only_on_cpu()
+    _check_kernel_sources_not_built_on_import()
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain(cuda_device):
+    for m in MODS:
+        _check_cuda_field_mul(cuda_device, m)
+        _check_cuda_ntt_butterfly(cuda_device, m)
+    for cfg in CURVES:
+        _check_cuda_ec_kernels(cuda_device, cfg)
