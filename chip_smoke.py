@@ -1,30 +1,52 @@
 #!/usr/bin/env python3
-"""Drive halo_tpu_torch's main path once on one NVIDIA GPU.
+"""Drive halo_tpu_torch's paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--log-rows 14] [--seed 11]
+    python3 chip_smoke.py [--log-rows 14] [--ivc-steps 2] [--seed 11]
 
-Phases, one line each; any failure raises (exit code != 0):
+Phases, one line each or more; any failure raises (exit code != 0), and no
+phase falls back to the CPU or to a plain version:
 
   1. device   the card's name and power limit (nvidia-smi); needs CUDA
-  2. build    nvcc builds csrc/kernels.cu from this checkout; then the
-              SRS of the main path is loaded or derived (timed)
-  3. kernels  each kernel against its plain torch version on the card, at
-              the main path's shapes; results must be equal (exact
-              arithmetic: max_abs_err must be 0) and canonical (< p)
-  4. golden   the port's prover on the card reproduces
-              tests/fixtures/proof_{pallas,vesta}.bin byte for byte
-  5. main     a Pallas Poseidon-chain circuit of 2^log_rows rows (bench.py's
-              circuit): a warm-up trace and proof, then the counted and
-              timed run: port trace, proof, verify (halo_tpu's succinct
-              verifier + the port's decider); the proof must equal the
-              warm-up's, and the decider MSM the host MSM's
-              (halo_tpu.native, through halo_tpu_torch.srs.host_msm).
-              Every kernel's launch count over the counted run must be > 0.
+  2. build    nvcc builds csrc/kernels.cu from this checkout
+  3. srs      the Pallas SRS of the PLONK path (2^log_rows generators),
+              derived on the card by scalar_mul_rows (ec_pdbl, ec_pmadd);
+              counted and timed
+  4. kernels  each kernel against its plain torch version on the card, at
+              the shapes of the srs and plonk paths (2^log_rows); results
+              must be equal (exact arithmetic: max_abs_err must be 0) and
+              canonical (< p).  ec_pmadd and ec_pdbl run at the SRS shape
+              (2^log_rows + 2 lanes) with identity, P = Q and P = -Q lanes;
+              ec_padd on the v1 kernel's cases and field_mul on canonical
+              inputs stand for the v1 kernels
+  5. golden   the port's prover reproduces tests/fixtures/proof_{pallas,
+              vesta}.bin byte for byte
+  6. plonk    a Pallas Poseidon-chain circuit of 2^log_rows rows (bench.py's
+              circuit): a warm-up proof, then the counted and timed run:
+              trace, proof, verify.  The proof must equal the warm-up's and
+              the decider MSM the naive MSM (srs.msm_naive)
+  7. ivc      IVCState.init from tests/fixtures/ivc_consts.json and
+              --ivc-steps steps of the 2^16-row IVC chain (both curves'
+              proofs), each verified; the SRS of both curves at 2^16 is
+              derived first, inside the counted run.  Step 1's proofs must
+              equal tests/fixtures/ivc_step1_{pallas,vesta}.bin where those
+              exist.
+  8. kernels  phase 4 again at the IVC path's shapes (2^16 rows: 2^16 + 2
+              SRS lanes, the 8 * 2^16 extended domain, a 2^16 commitment's
+              scan), over each curve's fields; the kernels line reports
+              the Pallas ones
 
-The last three lines: the kernels JSON, the nvidia-smi line, and
-{"ok": true, "device": {...}}.  The script imports torch and halo_tpu_torch
-only, never jax or halo_tpu itself; the run fails if any jax module was
-loaded.
+Each counted run (srs, plonk, ivc) sets every kernel's launch count to 0
+just before it and reads the counts just after; a kernel of that path with
+no launch fails the run.  The last three lines: the kernels JSON, the
+nvidia-smi line, and {"ok": true, "device": {...}}.  The script imports
+torch and halo_tpu_torch only, never jax or halo_tpu; the run fails if any
+module of either was loaded.
+
+bound_ms is the least time the card could take for a kernel's work at the
+timed shape: the larger of its bytes (each input read once, each output
+written once) over 3.35 TB/s and its 32-bit multiply-adds (136 per field
+product) over 16.7 T/s (132 SMs x 64 multiply-adds per clock x 1.98 GHz,
+the integer rate of an H100 SXM at its 700 W limit).
 """
 
 from __future__ import annotations
@@ -43,7 +65,20 @@ REPLACES = {
     "ntt_butterfly": "halo_tpu/ops/pallas_mont.py:459",
     "ec_padd": "halo_tpu/ops/pallas_mont.py:261",
     "ec_pmadd_scan": "halo_tpu/ops/pallas_mont.py:355",
+    "ec_pmadd": "halo_tpu/ops/pallas_mont.py:308",
+    "ec_pdbl": "halo_tpu/ops/pallas_mont.py:410",
 }
+# which counted run drives which kernels
+PATH_KERNELS = {
+    "srs": ("field_mul", "ec_pdbl", "ec_pmadd"),
+    "plonk": ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan"),
+    "ivc": tuple(REPLACES),
+}
+IVC_LOG_ROWS = 16
+IVC_ROWS = 1 << IVC_LOG_ROWS
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_S = 132 * 64 * 1.98e9
+FE_MUL_OPS = 136  # 32x32-bit multiply-adds in one 8-word CIOS product
 
 
 def _phase(name: str, msg: str) -> None:
@@ -62,6 +97,12 @@ def _time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _bound(nbytes: float, products: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = products * FE_MUL_OPS / IMAD_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def poseidon_chain(target_rows: int, seed: int):
@@ -102,18 +143,31 @@ def golden_builder():
     return tb
 
 
-def _kernels_vs_plain(dev, log_rows: int, seed: int) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
+def _counted(name: str, fn):
+    """Run fn with every launch count set to 0 first; returns (fn's result,
+    the counts after).  Fails if a kernel of the path was not launched."""
+    from halo_tpu_torch.ops import kernels
+
+    kernels.reset_counts()
+    out = fn()
+    launches = kernels.counts()
+    missing = [k for k in PATH_KERNELS[name] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the {name} path launched no {missing}")
+    return out, launches
+
+
+def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
+    """Each kernel against its plain version, over cfg's fields, at the
+    shapes a path of 2^log_rows rows gives it."""
     import torch
 
+    from halo_tpu_torch import srs
     from halo_tpu_torch.ops import ecrows, ff, mont, msm2
-    from halo_tpu_torch.plonk.circuit import TRACE_CURVE
-    from halo_tpu_torch.srs import srs_pack
 
     rng = random.Random(seed)
-    cfg = TRACE_CURVE[0]
     m = cfg.r  # scalar field: the engine's muls and NTTs
-    p = cfg.p  # base field: the MSM's EC kernels
+    p = cfg.p  # base field: the EC kernels
     n = 1 << log_rows
     big_n = 8 * n  # the extended domain of the prover's NTTs
     out = {}
@@ -121,7 +175,7 @@ def _kernels_vs_plain(dev, log_rows: int, seed: int) -> dict:
     def rows(mod, k):
         return ff.to_rows([rng.randrange(mod) for _ in range(k)], dev)
 
-    def report(name, got, want, modulus, ms, plain_ms):
+    def report(name, got, want, modulus, ms, plain_ms, nbytes, products):
         if got.shape != want.shape:
             raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
         err = int((got.long() - want.long()).abs().max())
@@ -131,78 +185,232 @@ def _kernels_vs_plain(dev, log_rows: int, seed: int) -> dict:
         vals = ff.from_rows(words[:, :: max(1, words.shape[1] // 4096)])
         if max(vals) >= modulus:
             raise AssertionError(f"{name}: output not canonical")
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        _phase("kernels", f"{name}: equal to plain, {tuple(got.shape)}; "
-                          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        bound_ms, bound_by = _bound(nbytes, products)
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None, "shape": list(got.shape)}
+        _phase("kernels", f"{name} ({cfg.name}): equal to plain, {tuple(got.shape)}; "
+                          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                          f"bound {bound_ms:.4f} ms ({bound_by})")
 
-    # field_mul at the 8n extended domain; also the broadcast (mulc) form
+    # field_mul at the 8n extended domain; also the broadcast (mulc) form,
+    # and canonical (non-Montgomery) operands, the v1 pallas_ff product
     a, b = rows(m, big_n), rows(m, big_n)
-    got = mont.field_mul(m, a, b)
-    report("field_mul", got, mont.field_mul_plain(m, a, b), m,
+    report("field_mul", mont.field_mul(m, a, b), mont.field_mul_plain(m, a, b), m,
            _time_ms(lambda: mont.field_mul(m, a, b), 20),
-           _time_ms(lambda: mont.field_mul_plain(m, a, b), 3))
+           _time_ms(lambda: mont.field_mul_plain(m, a, b), 3), 96 * big_n, big_n)
     if not mont.field_mul(m, a, b[:, :1]).equal(mont.field_mul_plain(m, a, b[:, :1])):
         raise AssertionError("field_mul: broadcast form differs from plain")
+    xs = [rng.randrange(m) for _ in range(64)]
+    ys = [rng.randrange(m) for _ in range(64)]
+    rinv = pow(1 << 256, -1, m)
+    got = ff.from_rows(mont.field_mul(m, ff.to_rows(xs, dev), ff.to_rows(ys, dev)))
+    if got != [x * y * rinv % m for x, y in zip(xs, ys)]:
+        raise AssertionError("field_mul: canonical product differs from x*y/R")
 
     # one butterfly stage over the 8n domain (half = 2^10 of a 2^(log n) table)
     half, tw = min(1 << 10, big_n // 2), rows(m, big_n // 2)
     stride = (big_n // 2) // half
-    got = mont.ntt_butterfly(m, a, tw, half, stride)
-    report("ntt_butterfly", got, mont.ntt_butterfly_plain(m, a, tw, half, stride), m,
+    report("ntt_butterfly", mont.ntt_butterfly(m, a, tw, half, stride),
+           mont.ntt_butterfly_plain(m, a, tw, half, stride), m,
            _time_ms(lambda: mont.ntt_butterfly(m, a, tw, half, stride), 20),
-           _time_ms(lambda: mont.ntt_butterfly_plain(m, a, tw, half, stride), 3))
+           _time_ms(lambda: mont.ntt_butterfly_plain(m, a, tw, half, stride), 3),
+           64 * big_n + 32 * half, big_n // 2)
 
-    # ec_padd on SRS generators: the identity, equal and opposite lanes a
-    # complete formula must get right, then the bucket-assembly width of a
-    # 16-poly commitment (512 windows x 129 buckets)
-    xy = srs_pack(cfg.name, n, dev)
+    # points: the PLONK path's SRS generators; the identity, equal and
+    # opposite lanes a complete formula must get right come first
+    xy = srs.srs_pack(cfg.name, n, dev)
     one = ff.mont_one(p, dev)
 
     def proj(lo, hi):
         return torch.stack((xy[:8, lo:hi], xy[8:, lo:hi], one.expand(8, hi - lo)))
 
-    def affine(S):
-        X, Y, Z = (ff.from_rows(S[c]) for c in range(3))
-        return [None if z == 0 else (x * pow(z, -1, p) % p, y * pow(z, -1, p) % p)
-                for x, y, z in zip(X, Y, Z)]
+    def affine_of(P):
+        return ecrows.to_affine_ints(p, P)
 
     ident = ecrows.identity_rows(p, (1,), dev)
     A, B = proj(0, 1), proj(1, 2)
     neg_a = torch.stack((A[0], ff.neg(p, A[1]), A[2]))
     P = torch.cat((ident, A, A, A, ident, proj(2, 34)), -1)
     Q = torch.cat((B, ident, A, neg_a, ident, proj(34, 66)), -1)
-    S = affine(mont.ec_padd(p, P, Q))
-    on_curve = all(q is not None and (q[1] ** 2 - q[0] ** 3 - 5) % p == 0
-                   for q in [S[2]] + S[5:])
-    if S[0] != affine(B)[0] or S[1] != affine(A)[0] or S[3:5] != [None, None] or not on_curve:
-        raise AssertionError("ec_padd: wrong sum on an edge lane")
+    S = affine_of(mont.ec_padd(p, P, Q))
+    on_curve = all(q is not None and cfg.is_on_curve(q) for q in [S[2]] + S[5:])
+    if S[0] != affine_of(B)[0] or S[1] != affine_of(A)[0] or S[3:5] != [None, None] \
+            or not on_curve:
+        raise AssertionError("ec_padd: wrong sum on an edge lane (the v1 add's cases)")
+    # the bucket-assembly width of a 16-poly commitment (512 windows x 129 buckets)
     reps = (512 * 129) // P.shape[-1] + 1
     Pw, Qw = P.repeat(1, 1, reps), Q.repeat(1, 1, reps)
     report("ec_padd", mont.ec_padd(p, Pw, Qw), mont.ec_padd_plain(p, Pw, Qw), p,
            _time_ms(lambda: mont.ec_padd(p, Pw, Qw), 20),
-           _time_ms(lambda: mont.ec_padd_plain(p, Pw, Qw), 3))
+           _time_ms(lambda: mont.ec_padd_plain(p, Pw, Qw), 3),
+           288 * Pw.shape[-1], 14 * Pw.shape[-1])
+
+    # ec_pmadd and ec_pdbl at the SRS derivation's shape (n + 2 lanes):
+    # lanes identity + A, A + A, A + (-A), then SRS generators in turn
+    lanes = n + 2
+    reps = lanes // n + 1
+    Pd = torch.cat((ident, A, A, proj(0, n).repeat(1, 1, reps)), -1)[:, :, :lanes].contiguous()
+    ax, ay = xy[:8, :1], xy[8:, :1]
+    nay = ff.neg(p, ay)
+    Qd = torch.cat((torch.cat((ax, ay)), torch.cat((ax, ay)), torch.cat((ax, nay)),
+                    xy.roll(1, -1).repeat(1, reps)), -1)[:, :lanes].contiguous()
+    S = affine_of(mont.ec_pmadd(p, Pd[:, :, :8], Qd[:, :8]))
+    D = affine_of(mont.ec_pdbl(p, Pd[:, :, :8]))
+    a_pt, a2 = affine_of(A)[0], affine_of(mont.ec_padd(p, A, A))[0]
+    if S[:3] != [a_pt, a2, None] or D[:3] != [None, a2, a2] \
+            or not all(cfg.is_on_curve(q) for q in S[3:] + D[3:]):
+        raise AssertionError("ec_pmadd/ec_pdbl: wrong result on an edge lane")
+    report("ec_pmadd", mont.ec_pmadd(p, Pd, Qd), mont.ec_pmadd_plain(p, Pd, Qd), p,
+           _time_ms(lambda: mont.ec_pmadd(p, Pd, Qd), 20),
+           _time_ms(lambda: mont.ec_pmadd_plain(p, Pd, Qd), 3), 256 * lanes, 13 * lanes)
+    g = Qd[:, :1].contiguous()  # one broadcast base, as the SRS derivation adds G
+    if not mont.ec_pmadd(p, Pd, g).equal(mont.ec_pmadd_plain(p, Pd, g)):
+        raise AssertionError("ec_pmadd: broadcast form differs from plain")
+    # the derivation's field_mul: G into Montgomery form (one lane, broadcast R^2)
+    gx, r2 = Qd[:8, :1].contiguous(), Qd[8:, :1].contiguous()
+    if not mont.field_mul(p, gx, r2).equal(mont.field_mul_plain(p, gx, r2)):
+        raise AssertionError("field_mul: the one-lane broadcast form differs from plain")
+    report("ec_pdbl", mont.ec_pdbl(p, Pd), mont.ec_pdbl_plain(p, Pd), p,
+           _time_ms(lambda: mont.ec_pdbl(p, Pd), 20),
+           _time_ms(lambda: mont.ec_pdbl_plain(p, Pd), 3), 192 * lanes, 9 * lanes)
 
     # ec_pmadd_scan at a commitment's scan shape: 2^log_rows SRS points,
     # one poly's windows (c = 8: 32) x its lanes, R steps
     L = msm2.choose_lanes(n)
     R, F = n // L, 32 * L
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    idx = torch.randint(0, n, (R, F), generator=g, dtype=torch.int32).to(dev)
-    neg = (torch.rand((R, F), generator=g) < 0.5).to(dev)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    idx = torch.randint(0, n, (R, F), generator=gen, dtype=torch.int32).to(dev)
+    neg = (torch.rand((R, F), generator=gen) < 0.5).to(dev)
     report("ec_pmadd_scan", mont.ec_pmadd_scan(p, xy, idx, neg),
            mont.ec_pmadd_scan_plain(p, xy, idx, neg), p,
            _time_ms(lambda: mont.ec_pmadd_scan(p, xy, idx, neg), 5),
-           _time_ms(lambda: mont.ec_pmadd_scan_plain(p, xy, idx, neg), 1))
+           _time_ms(lambda: mont.ec_pmadd_scan_plain(p, xy, idx, neg), 1),
+           64 * min(n, R * F) + 5 * R * F + 96 * R * F, 13 * R * F)
     return out
+
+
+def _plonk_path(dev, log_rows: int, seed: int) -> dict:
+    import torch
+
+    from halo_tpu_torch import device as devmod
+    from halo_tpu_torch import pcdl, srs
+    from halo_tpu_torch.curves import PALLAS
+    from halo_tpu_torch.ops import msm2
+    from halo_tpu_torch.plonk import protocol, trace
+
+    cfg = PALLAS
+    n = 1 << log_rows
+    fp_data, _ = poseidon_chain(n, seed).trace()
+    if fp_data.rows != n:
+        raise AssertionError(f"circuit has {fp_data.rows} rows, wanted {n}")
+
+    # warm-up: one trace and proof, outside the counted and timed run
+    t0 = time.perf_counter()
+    circuit, x, w = trace.Trace.new(cfg, fp_data, dev).consume()
+    warm = protocol.naive_prover(cfg, circuit, x, w, dev).to_bytes(cfg)
+    t_warm = time.perf_counter() - t0
+
+    def run():
+        times = {}
+        t0 = time.perf_counter()
+        tr = trace.Trace.new(cfg, fp_data, dev)
+        devmod.sync(dev)
+        times["trace"] = time.perf_counter() - t0
+        circuit, x, w = tr.consume()
+        t0 = time.perf_counter()
+        proof = protocol.naive_prover(cfg, circuit, x, w, dev)
+        devmod.sync(dev)
+        times["prove"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        protocol.verify(cfg, proof, circuit, x, dev)
+        times["verify"] = time.perf_counter() - t0
+        return proof, times
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    (proof, times), launches = _counted("plonk", run)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    if proof.to_bytes(cfg) != warm:
+        raise AssertionError("two proofs of the same witness differ")
+
+    # the decider's MSM, once more, against an MSM that shares no code
+    # with the bucket MSM (uncounted: a check, not the path)
+    acc = proof.acc_next.q
+    h, U = pcdl.succinct_check(cfg, acc.C, acc.d, acc.z, acc.v, acc.pi)
+    coeffs = h.coeffs()
+    t0 = time.perf_counter()
+    naive = srs.msm_naive(cfg, coeffs, dev)
+    t_naive = time.perf_counter() - t0
+    if msm2.msm2_srs(cfg, coeffs, dev) != U or naive != U:
+        raise AssertionError("decider MSM disagrees with the naive MSM")
+    _phase("plonk", f"{cfg.name} Poseidon chain, 2^{log_rows} rows: trace {times['trace']:.3f} s, "
+                    f"prove {times['prove']:.3f} s, verify {times['verify']:.3f} s (warm-up "
+                    f"trace + prove {t_warm:.2f} s); peak device memory {peak_gib:.2f} GiB; "
+                    f"proof {len(warm)} bytes verified; decider MSM of {len(coeffs)} points "
+                    f"equal to the naive MSM ({t_naive:.3f} s)")
+    _phase("plonk", f"kernel launches: {json.dumps(launches)}")
+    return launches
+
+
+def _ivc_path(dev, steps: int) -> dict:
+    from halo_tpu_torch import srs
+    from halo_tpu_torch.curves import PALLAS, VESTA
+    from halo_tpu_torch.frontend.ivc import IVCState, _params_from_reference_fixture
+    from halo_tpu_torch.ops import kernels
+
+    gold = {c: ROOT / "tests" / "fixtures" / f"ivc_step1_{c}.bin" for c in ("pallas", "vesta")}
+
+    def run():
+        for cfg in (PALLAS, VESTA):
+            t0 = time.perf_counter()
+            srs.load_srs(cfg.name, IVC_ROWS, dev)
+            _phase("ivc", f"SRS {cfg.name} 2^16 generators derived on the card in "
+                          f"{time.perf_counter() - t0:.3f} s")
+        state = IVCState.init(_params_from_reference_fixture(), dev)
+        state.verify()
+        for _ in range(steps):
+            before = kernels.counts()
+            t0 = time.perf_counter()
+            state = state.prove()
+            t_step = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            state.verify()
+            t_verify = time.perf_counter() - t0
+            sizes = {cfg.name: len(pf.to_bytes(cfg))
+                     for cfg, pf in ((PALLAS, state.fp_proof), (VESTA, state.fq_proof))}
+            if sizes != {"pallas": 7107, "vesta": 7107}:
+                raise AssertionError(f"step {state.i}: proof sizes {sizes}, wanted 7107 each")
+            held = ""
+            if state.i == 1 and all(f.exists() for f in gold.values()):
+                for cfg, pf in ((PALLAS, state.fp_proof), (VESTA, state.fq_proof)):
+                    if pf.to_bytes(cfg) != gold[cfg.name].read_bytes():
+                        raise AssertionError(f"step 1 {cfg.name} proof differs from {gold[cfg.name].name}")
+                held = "; both equal to tests/fixtures/ivc_step1_*.bin byte for byte"
+            t = state.timings
+            _phase("ivc", f"step {state.i - 1}->{state.i}: {t_step:.3f} s (trace {t['trace']:.3f} s, "
+                          f"prove pallas {t['prove_pallas']:.3f} s, prove vesta "
+                          f"{t['prove_vesta']:.3f} s, verify in prove {t['verify']:.3f} s); "
+                          f"state.verify() {t_verify:.3f} s; proofs {sizes['pallas']} + "
+                          f"{sizes['vesta']} bytes{held}")
+            after = kernels.counts()
+            _phase("ivc", f"step {state.i} kernel launches: "
+                          f"{json.dumps({k: after[k] - before[k] for k in after})}")
+        return state
+
+    _, launches = _counted("ivc", run)
+    _phase("ivc", f"kernel launches, SRS + {steps} steps: {json.dumps(launches)}")
+    return launches
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-rows", type=int, default=14)
+    ap.add_argument("--ivc-steps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=11)
     args = ap.parse_args()
-    if args.log_rows < 7:
-        ap.error("--log-rows must be at least 7")
+    if not 7 <= args.log_rows <= 16:
+        ap.error("--log-rows must be in [7, 16]")
+    if args.ivc_steps < 1:
+        ap.error("--ivc-steps must be at least 1")
 
     if not (ROOT / "halo_tpu_torch" / "csrc" / "kernels.cu").exists():
         raise SystemExit("chip_smoke.py: run it from a checkout of the repository")
@@ -211,8 +419,9 @@ def main() -> int:
     import torch
 
     from halo_tpu_torch import device as devmod
-    from halo_tpu_torch import pcdl, srs
-    from halo_tpu_torch.ops import kernels, msm2
+    from halo_tpu_torch import srs
+    from halo_tpu_torch.curves import PALLAS, VESTA
+    from halo_tpu_torch.ops import kernels
     from halo_tpu_torch.plonk import protocol, trace
     from halo_tpu_torch.plonk.circuit import TRACE_CURVE
 
@@ -223,20 +432,20 @@ def main() -> int:
 
     # 2. build
     kernels.build()
-    _phase("build", f"nvcc build + load {kernels.BUILD_SECONDS:.2f} s ({kernels.library_path().name})")
+    regs = kernels.registers()
+    _phase("build", f"nvcc build + load {kernels.BUILD_SECONDS:.2f} s ({kernels.library_path().name}); "
+                    f"registers per thread: {json.dumps(regs)}")
 
-    # the SRS of the main path (derived from its hash-to-curve formula
-    # when no cached copy is at hand); the kernels phase draws points from it
-    cfg = TRACE_CURVE[0]
-    n = 1 << args.log_rows
+    # 3. the PLONK path's SRS, derived on the card
     t0 = time.perf_counter()
-    srs.load_srs(cfg.name, n)
-    _phase("srs", f"{cfg.name}, 2^{args.log_rows} generators: {time.perf_counter() - t0:.2f} s")
+    _, srs_launches = _counted("srs", lambda: srs.load_srs(PALLAS.name, 1 << args.log_rows, dev))
+    _phase("srs", f"pallas, 2^{args.log_rows} generators derived on the card in "
+                  f"{time.perf_counter() - t0:.3f} s; kernel launches: {json.dumps(srs_launches)}")
 
-    # 3. kernels vs plain
-    stats = _kernels_vs_plain(dev, args.log_rows, args.seed)
+    # 4. kernels vs plain at the srs and plonk paths' shapes
+    checked = {"srs+plonk": _kernels_vs_plain(dev, PALLAS, args.log_rows, args.seed)}
 
-    # 4. golden bytes
+    # 5. golden bytes
     t0 = time.perf_counter()
     traces = trace.trace_pair(golden_builder(), dev)
     for which, tr, curve in zip(("pallas", "vesta"), traces, TRACE_CURVE):
@@ -249,60 +458,27 @@ def main() -> int:
     _phase("golden", f"proof_pallas.bin and proof_vesta.bin reproduced byte for byte "
                      f"and verified ({time.perf_counter() - t0:.2f} s)")
 
-    # 5. main path
-    fp_data, _ = poseidon_chain(n, args.seed).trace()
-    if fp_data.rows != n:
-        raise AssertionError(f"circuit has {fp_data.rows} rows, wanted {n}")
+    # 6. and 7. the counted paths
+    by_path = {"srs": srs_launches, "plonk": _plonk_path(dev, args.log_rows, args.seed),
+               "ivc": _ivc_path(dev, args.ivc_steps)}
 
-    # warm-up: one trace and proof, outside the counted and timed run
-    t0 = time.perf_counter()
-    circuit, x, w = trace.Trace.new(cfg, fp_data, dev).consume()
-    warm = protocol.naive_prover(cfg, circuit, x, w, dev).to_bytes(cfg)
-    t_warm = time.perf_counter() - t0
+    # 8. kernels vs plain at the IVC path's shapes, on both curves (after
+    # the path: the 2^16 SRS it derives inside its counted run is at hand)
+    _phase("kernels", f"at the IVC path's shapes (2^{IVC_LOG_ROWS} rows)")
+    for cfg in (VESTA, PALLAS):
+        checked[f"ivc {cfg.name}"] = _kernels_vs_plain(dev, cfg, IVC_LOG_ROWS, args.seed)
 
-    kernels.reset_counts()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    tr = trace.Trace.new(cfg, fp_data, dev)
-    devmod.sync(dev)
-    t_trace = time.perf_counter() - t0
-    circuit, x, w = tr.consume()
-    t0 = time.perf_counter()
-    proof = protocol.naive_prover(cfg, circuit, x, w, dev)
-    devmod.sync(dev)
-    t_prove = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    protocol.verify(cfg, proof, circuit, x, dev)
-    t_verify = time.perf_counter() - t0
-    launches = kernels.counts()
-    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    if proof.to_bytes(cfg) != warm:
-        raise AssertionError("two proofs of the same witness differ")
-
-    # the decider's MSM, once more, against the host MSM
-    acc = proof.acc_next.q
-    h, U = pcdl.succinct_check(cfg, acc.C, acc.d, acc.z, acc.v, acc.pi)
-    coeffs = h.coeffs()
-    mine = msm2.msm2_srs(cfg, coeffs, dev)
-    if mine != U or srs.host_msm(cfg, coeffs) != mine:
-        raise AssertionError("decider MSM disagrees with the host MSM")
-    _phase("main", f"{cfg.name} Poseidon chain, 2^{args.log_rows} rows: "
-                   f"trace {t_trace:.3f} s, prove {t_prove:.3f} s, verify {t_verify:.3f} s "
-                   f"(warm-up trace + prove {t_warm:.2f} s); peak device memory "
-                   f"{peak_gib:.2f} GiB; proof {len(warm)} bytes verified; decider MSM "
-                   f"equal to the host MSM")
-    _phase("main", f"kernel launches: {json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"main path launched no {missing}")
-    jax_mods = sorted(k for k, v in sys.modules.items()
-                      if v is not None and k.split(".")[0] in ("jax", "jaxlib"))
-    if jax_mods:
-        raise AssertionError(f"the run imported jax: {jax_mods[:5]}")
+    loaded = sorted(k for k, v in sys.modules.items()
+                    if v is not None and k.split(".")[0] in ("jax", "jaxlib", "halo_tpu"))
+    if loaded:
+        raise AssertionError(f"the run imported jax or halo_tpu: {loaded[:5]}")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": "halo_tpu_torch/csrc/kernels.cu",
-         "replaces": REPLACES[name], "launches": launches[name], **stats[name]}
+         "replaces": REPLACES[name], "launches": by_path["ivc"][name],
+         "launches_by_path": {path: c[name] for path, c in by_path.items()},
+         "registers": regs[name], **checked["ivc pallas"][name],
+         "shapes_checked": {path: c[name]["shape"] for path, c in checked.items()}}
         for name in kernels.NAMES]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,17 +1,18 @@
-"""PyTorch/CUDA port of halo_tpu's PLONK prover slice.
+"""PyTorch/CUDA port of halo_tpu: a Halo-style recursive prover over the
+Pasta cycle, for one NVIDIA Hopper card.
 
-The package proves one PLONK proof end to end (circuit -> trace ->
-naive_prover -> proof bytes -> verify) on tensors of canonical Montgomery
-residues (R = 2^256, the same R as halo_tpu.ops.ff, so Montgomery values
-match the JAX package bit for bit).  Field elements are held as 8
-little-endian u32 words stored in int32, in a limb-major (8, ...) rows
-layout.  Four hand-written CUDA kernels (csrc/kernels.cu) carry the hot
-path on an NVIDIA Hopper card; each has a plain torch version beside it
-that CPU tensors take.
+The package proves PLONK proofs end to end (circuit -> trace ->
+naive_prover -> proof bytes -> verify) and runs the IVC chain of
+frontend/ivc.py (IVCState.init -> prove -> verify), on tensors of
+canonical Montgomery residues (R = 2^256, the same R as halo_tpu.ops.ff, so
+Montgomery values match the JAX package bit for bit).  Field elements are
+held as 8 little-endian u32 words stored in int32, in a limb-major (8, ...)
+rows layout.  Six hand-written CUDA kernels (csrc/kernels.cu) carry the
+device work on an NVIDIA Hopper card; each has a plain torch version
+beside it that CPU tensors take.
 
-The package imports torch and never jax.  From halo_tpu it reuses only the
-modules whose import path is free of jax: fields, curves, poseidon, serde,
-srs, native, errors, config, plonk.circuit, plonk.constants and the pure
-data classes/functions of pcdl, acc, hostpoly, plonk.trace and
-plonk.protocol.
+The package imports torch, never jax and nothing of halo_tpu: the host
+pieces it shares with the JAX package (fields, curves, Poseidon, the
+arithmetizer, the proof data classes, the succinct verifiers, the
+frontend) are its own copies, under the same module names.
 """

@@ -150,9 +150,10 @@ __device__ __forceinline__ void fe_mul(Fe& r, const Fe& a, const Fe& b, int f) {
 }
 
 // ---------------- complete projective formulas, a = 0 ----------------
-// Renes-Costello-Batina 2015, algorithm 7 (add) and its Z2 = 1 mixed
-// form, in the operation order of halo_tpu/ops/pallas_mont.py
-// (_padd_kernel :285-301, _pmadd_pack_kernel :389-403).  Points are
+// Renes-Costello-Batina 2015, algorithm 7 (add), its Z2 = 1 mixed form and
+// algorithm 9 (doubling), in the operation order of halo_tpu/ops/
+// pallas_mont.py (_padd_kernel :285-301, _pmadd_kernel :340-352,
+// _pmadd_pack_kernel :389-403, _pdbl_kernel :431-450).  Points are
 // projective (X : Y : Z) in Montgomery form; the identity is (0 : 1 : 0).
 
 struct Pt {
@@ -235,6 +236,33 @@ __device__ __forceinline__ void pt_add_affine(Pt& r, const Pt& p, const Fe& x2, 
   fe_mul(u, Z3, t4, f);
   fe_mul(v, t0, t3, f);
   fe_add(r.Z, u, v, f);
+}
+
+// 2p, complete (the identity and points of order 2 need no branch);
+// 9 multiplications, 3b folded as one product by B3.
+__device__ __forceinline__ void pt_double(Pt& r, const Pt& p, int f) {
+  Fe t0, t1, t2, X3, Y3, Z3, b3;
+  fe_b3(b3, f);
+  fe_mul(t0, p.Y, p.Y, f);
+  fe_add(Z3, t0, t0, f);
+  fe_add(Z3, Z3, Z3, f);
+  fe_add(Z3, Z3, Z3, f);
+  fe_mul(t1, p.Y, p.Z, f);
+  fe_mul(t2, p.Z, p.Z, f);
+  fe_mul(t2, t2, b3, f);
+  fe_mul(X3, t2, Z3, f);
+  fe_add(Y3, t0, t2, f);
+  fe_mul(Z3, t1, Z3, f);
+  fe_add(t1, t2, t2, f);
+  fe_add(t2, t1, t2, f);
+  fe_sub(t0, t0, t2, f);
+  fe_mul(Y3, t0, Y3, f);
+  fe_add(Y3, X3, Y3, f);
+  fe_mul(t1, p.X, p.Y, f);
+  fe_mul(X3, t0, t1, f);
+  fe_add(r.X, X3, X3, f);
+  r.Y = Y3;
+  r.Z = Z3;
 }
 
 }  // namespace halo

@@ -1,4 +1,4 @@
-// The port's four CUDA kernels (sm_90a), over the field core in field.cuh.
+// The port's six CUDA kernels (sm_90a), over the field core in field.cuh.
 //
 // Layout: limb-major rows.  A batch of N field elements is 8 rows of N
 // words (word k of lane i at k*N + i), so neighbouring threads read
@@ -11,17 +11,27 @@
 //   field_mul      _mm_kernel :256 and _mulc_kernel :474 (b broadcast),
 //                  with _canon_kernel :482 folded into the epilogue
 //   ntt_butterfly  _bfly_kernel :459, one radix-2 stage per launch
-//   ec_padd        _padd_kernel :261
+//   ec_padd        _padd_kernel :261 (and, on canonical inputs, the v1
+//                  halo_tpu/ops/pallas_ec.py:_ec_add_kernel :110)
+//   ec_pmadd       _pmadd_kernel :308 (mixed add, unpacked affine operand,
+//                  per lane or one broadcast point)
+//   ec_pdbl        _pdbl_kernel :410 (and the v1 pallas_ec.py:
+//                  _ec_double_kernel :149)
 //   ec_pmadd_scan  _pmadd_pack_kernel :355 together with the lax.scan
 //                  around it (halo_tpu/ops/msm2.py:398-417)
 //
 // Bounds on an H100: field_mul and ntt_butterfly move 96 bytes per
 // element for ~130 integer multiply-adds, so they are memory-bound near
-// 3.35 TB/s at large N; ec_padd (14 products) and ec_pmadd_scan (13
-// products per step, held in registers across R steps, with a random
-// 64-byte gather of the affine point per step) are bound by the 32-bit
-// multiply throughput.  This first version is plain CUDA: one thread per
-// lane, no shared memory, no PTX carry chains.
+// 3.35 TB/s at large N.  The EC kernels are bound by the 32-bit multiply
+// throughput: ec_padd (14 products, 288 bytes a lane), ec_pmadd (13
+// products, 256 bytes a lane, 192 with a broadcast operand), ec_pdbl (9
+// products, 192 bytes a lane) and ec_pmadd_scan (13 products per step,
+// held in registers across R steps, with a random 64-byte gather of the
+// affine point per step).  This first version is plain CUDA: one thread
+// per lane, no shared memory, no PTX carry chains.
+//
+// field_mul on canonical inputs is also the v1 canonical Montgomery
+// product of halo_tpu/ops/pallas_ff.py:_mont_mul_kernel :77.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -106,6 +116,37 @@ __global__ void k_ec_padd(uint32_t* __restrict__ out, const uint32_t* __restrict
   store_pt(out, n, i, r);
 }
 
+// out[i] = P[i] + (x, y), the affine operand xy[:, i] (or xy[:, 0] when
+// xy_bcast): x words in rows 0-7 and y words in rows 8-15 of the (16, n)
+// or (16, 1) operand.  The affine point must not be the identity.
+__global__ void k_ec_pmadd(uint32_t* __restrict__ out, const uint32_t* __restrict__ P,
+                           const uint32_t* __restrict__ xy, long long n, int xy_bcast, int f) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Pt a, r;
+  Fe x, y;
+  load_pt(a, P, n, i);
+  if (xy_bcast) {
+    load_fe(x, xy, 1, 0);
+    load_fe(y, xy + 8, 1, 0);
+  } else {
+    load_fe(x, xy, n, i);
+    load_fe(y, xy + 8 * n, n, i);
+  }
+  halo::pt_add_affine(r, a, x, y, f);
+  store_pt(out, n, i, r);
+}
+
+__global__ void k_ec_pdbl(uint32_t* __restrict__ out, const uint32_t* __restrict__ P, long long n,
+                          int f) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Pt a, r;
+  load_pt(a, P, n, i);
+  halo::pt_double(r, a, f);
+  store_pt(out, n, i, r);
+}
+
 // Lane f_ of F runs a prefix over R sorted points: acc starts at the
 // identity; at step t it adds the affine point xy[:, idx[t, f_]] (negated
 // when neg[t, f_] != 0) and writes acc to out[:, t, f_].  xy holds the
@@ -163,6 +204,23 @@ int halo_ec_padd(void* out, const void* P, const void* Q, long long n, int f, vo
   return (int)cudaGetLastError();
 }
 
+int halo_ec_pmadd(void* out, const void* P, const void* xy, long long n, int xy_bcast, int f,
+                   void* stream) {
+  if (n > 0) {
+    k_ec_pmadd<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+        (uint32_t*)out, (const uint32_t*)P, (const uint32_t*)xy, n, xy_bcast, f);
+  }
+  return (int)cudaGetLastError();
+}
+
+int halo_ec_pdbl(void* out, const void* P, long long n, int f, void* stream) {
+  if (n > 0) {
+    k_ec_pdbl<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>((uint32_t*)out,
+                                                                   (const uint32_t*)P, n, f);
+  }
+  return (int)cudaGetLastError();
+}
+
 int halo_ec_pmadd_scan(void* out, const void* xy, const void* idx, const void* neg, long long R,
                        long long F, long long npts, int f, void* stream) {
   if (R > 0 && F > 0) {
@@ -171,6 +229,21 @@ int halo_ec_pmadd_scan(void* out, const void* xy, const void* idx, const void* n
         npts, f);
   }
   return (int)cudaGetLastError();
+}
+
+// Registers per thread of each kernel as loaded, in the order field_mul,
+// ntt_butterfly, ec_padd, ec_pmadd_scan, ec_pmadd, ec_pdbl, into out[0..5].
+int halo_kernel_registers(int* out) {
+  const void* fns[] = {(const void*)k_field_mul, (const void*)k_ntt_butterfly,
+                       (const void*)k_ec_padd,   (const void*)k_ec_pmadd_scan,
+                       (const void*)k_ec_pmadd,  (const void*)k_ec_pdbl};
+  for (int i = 0; i < 6; ++i) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, fns[i]);
+    if (err != cudaSuccess) return (int)err;
+    out[i] = attr.numRegs;
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -1,19 +1,48 @@
-"""Batched host-vector NTTs through the port's NTT (port of
-halo_tpu/hostpoly.py ntt_host_batch / interpolate_evals_batch :105-166).
+"""Evaluation vectors and batched NTTs (port of halo_tpu/hostpoly.py:
+HostEvals, domain_element, ntt_host_batch / interpolate_evals_batch
+:105-166).
 
-halo_tpu.hostpoly.ntt_host reaches jax at n >= 8192; these run every
-size on the port's NTT and can leave the Montgomery rows on the device for
-the prover, as halo_tpu's want_dev=True does.
+HostEvals keeps the reference's Evals quirk that affects bytes: a vector
+is stored rotated right by one, so row i of a trace lives at domain
+element w^(i+1) (reference crates/group/src/poly.rs:21-31).  The batched
+NTTs run every size on the port's NTT and can leave the Montgomery rows on
+the device for the prover, as halo_tpu's want_dev=True does.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
-from halo_tpu.curves import PALLAS, VESTA
-from halo_tpu.hostpoly import HostEvals
-
+from .curves import PALLAS, VESTA
+from .fields import two_adic_root_of_unity
 from .plonk.engine import Engine
+
+
+@lru_cache(maxsize=64)
+def _omega(m: int, log_n: int) -> int:
+    return two_adic_root_of_unity(m, log_n)
+
+
+def domain_element(m: int, n: int, i: int) -> int:
+    """w^i for w the canonical generator of the size-n domain."""
+    return pow(_omega(m, n.bit_length() - 1), i % n, m)
+
+
+class HostEvals:
+    """The reference's Evals: the raw (already rotated) evaluation vector
+    over a size-n domain."""
+
+    __slots__ = ("m", "vec")
+
+    def __init__(self, m: int, raw_vec: list[int]):
+        self.m = m
+        self.vec = raw_vec
+
+    @classmethod
+    def from_vec_and_domain(cls, m: int, vec: list[int]) -> "HostEvals":
+        return cls(m, [vec[-1]] + vec[:-1])
 
 
 def _engine(m: int, device) -> Engine:

@@ -23,7 +23,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from halo_tpu.fields import FP_MOD, FQ_MOD, R256
+from ..fields import FP_MOD, FQ_MOD, R256
 
 NWORDS = 8
 MODULI = (FP_MOD, FQ_MOD)  # field id 0, 1 (the ids csrc/field.cuh uses)
@@ -42,14 +42,8 @@ def field_id(m: int) -> int:
 
 def ints_to_words(xs) -> np.ndarray:
     """ints in [0, 2^256) -> (N, 8) uint32 little-endian words."""
-    from halo_tpu import native
-
     xs = list(xs)
-    fl = native.fastlimbs()
-    if fl is not None:
-        buf = fl.ints_to_bytes256(xs)
-    else:
-        buf = b"".join(int(x).to_bytes(32, "little") for x in xs)
+    buf = b"".join(int(x).to_bytes(32, "little") for x in xs)
     return np.frombuffer(buf, dtype="<u4").reshape(len(xs), NWORDS)
 
 

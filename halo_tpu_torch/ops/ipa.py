@@ -20,13 +20,11 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from halo_tpu.curves import Affine, CurveCfg, ec_add, ec_mul
-from halo_tpu.fields import inv
-from halo_tpu.pcdl import EvalProof
-from halo_tpu.poseidon.sponge import Protocols, Sponge
-
-from . import ff, msm2
+from ..curves import Affine, CurveCfg, ec_add, ec_mul
+from ..fields import inv
 from ..plonk.engine import Engine
+from ..poseidon.sponge import Protocols, Sponge
+from . import ff, msm2
 
 
 @lru_cache(maxsize=64)
@@ -45,13 +43,14 @@ def open_without_eval_device(cfg: CurveCfg, p, C: Affine, d: int, z: int, v: int
     """Non-hiding IPA open; p is a host coefficient list or an (8, n')
     Montgomery row tensor (n' <= d + 1).  Byte-identical to the host open."""
     from .. import srs
+    from ..pcdl import EvalProof
 
     device = torch.device(device)
     n = d + 1
     lg_n = n.bit_length() - 1
     m = cfg.r
     eng = Engine(cfg, device)
-    pp = srs.load_srs(cfg.name, max(4, n))
+    pp = srs.load_srs(cfg.name, max(4, n), device)
     transcript = Sponge(Protocols.PCDL, cfg)
 
     transcript.absorb_g([C])

@@ -5,7 +5,8 @@ interface (`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC`), bound with ctypes.  The build runs at first use, into
 build/halo_tpu_torch/ under the repository root, keyed by a hash of the
 sources, and never when a module is imported: the CPU tests import every
-module on a machine without nvcc.
+module on a machine without nvcc.  `registers` asks the loaded library for
+each kernel's registers per thread (cudaFuncGetAttributes).
 
 Each C entry returns cudaGetLastError(); `launch` raises on any non-zero
 value.  LAUNCHES counts launches per kernel: a wrapper adds one exactly
@@ -31,7 +32,7 @@ CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "field.cuh", CSRC / "kernels.cu")
 BUILD_DIR = _PKG.parent / "build" / "halo_tpu_torch"
 
-NAMES = ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan")
+NAMES = ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan", "ec_pmadd", "ec_pdbl")
 LAUNCHES: dict[str, int] = {name: 0 for name in NAMES}
 
 _vp, _ll, _int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -40,6 +41,9 @@ _SIGNATURES = {
     "halo_ntt_butterfly": [_vp, _vp, _vp, _ll, _ll, _ll, _ll, _int, _vp],
     "halo_ec_padd": [_vp, _vp, _vp, _ll, _int, _vp],
     "halo_ec_pmadd_scan": [_vp, _vp, _vp, _vp, _ll, _ll, _ll, _int, _vp],
+    "halo_ec_pmadd": [_vp, _vp, _vp, _ll, _int, _int, _vp],
+    "halo_ec_pdbl": [_vp, _vp, _ll, _int, _vp],
+    "halo_kernel_registers": [_vp],
 }
 
 _lib = None
@@ -98,6 +102,15 @@ def build() -> ctypes.CDLL:
         BUILD_SECONDS = time.perf_counter() - t0
         _lib = lib
         return lib
+
+
+def registers() -> dict[str, int]:
+    """Registers per thread of each kernel of the loaded library."""
+    out = (ctypes.c_int * len(NAMES))()
+    err = build().halo_kernel_registers(out)
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {err}")
+    return dict(zip(NAMES, out))
 
 
 def launch(name: str, *args) -> None:

@@ -14,11 +14,17 @@ kernel against its plain version on the card.
 | ec_padd        | k_ec_padd                | _padd_kernel :261 (padd_rows)                   |
 | ec_pmadd_scan  | k_ec_pmadd_scan          | _pmadd_pack_kernel :355 and the lax.scan around |
 |                |                          | it (halo_tpu/ops/msm2.py:398-417)               |
+| ec_pmadd       | k_ec_pmadd               | _pmadd_kernel :308 (pmadd_rows)                 |
+| ec_pdbl        | k_ec_pdbl                | _pdbl_kernel :410 (pdbl_rows)                   |
+
+On canonical inputs field_mul, ec_padd and ec_pdbl also compute what the
+v1 kernels computed: halo_tpu/ops/pallas_ff.py:_mont_mul_kernel :77 and
+halo_tpu/ops/pallas_ec.py:_ec_add_kernel :110, _ec_double_kernel :149.
 
 Field values are canonical Montgomery (8, ...) int32 word rows; points
 are (3, 8, ...) projective (X, Y, Z) rows over the curve's base field.
-The plain EC versions follow the kernels' formulas (RCB 2015 alg. 7 and
-its mixed form, a = 0, b = 5) and batch the independent products of each
+The plain EC versions follow the kernels' formulas (RCB 2015 alg. 7, its
+mixed form and alg. 9, a = 0, b = 5) and batch the independent products of each
 formula level into one multiplication, which gives the same values.
 """
 
@@ -26,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from halo_tpu.fields import R256
+from ..fields import R256
 
 from . import ff, kernels
 from .ff import NL, NWORDS
@@ -168,6 +174,22 @@ def _pmadd_l(m, P, x2, y2):
     return _canon_pt(m, ff.lsub(m, p0, p1, 18), p2 + p3, p4 + p5)
 
 
+def _pdbl_l(m, P):
+    """RCB alg. 9 (a = 0), _pdbl_kernel's formula."""
+    X, Y, Z = P
+    n = X.shape[1]
+    b3 = _b3(m, X).expand(NL, n)
+    t0, t1, t2, xy = _split(ff.lmul(  # inputs < p: outputs < 1.26p
+        m, _cat(Y, Y, Z, X), _cat(Y, Z, Z, Y)), n)
+    t2 = ff.lmul(m, t2, b3)  # < 1.32p
+    z8 = 8 * t0  # < 10.1p, limbs < 2^29 + 8
+    x3, z3 = _split(ff.lmul(m, _cat(t2, t1), _cat(z8, z8)), n)  # < 4.4p
+    y3 = t0 + t2  # < 2.6p
+    t0 = ff.lsub(m, t0, 3 * t2, 4)  # < 5.3p
+    y3, x3b = _split(ff.lmul(m, _cat(t0, t0), _cat(y3, xy)), n)  # < 4.4p
+    return _canon_pt(m, x3b + x3b, x3 + y3, z3)
+
+
 def _pt_to_limbs(P: torch.Tensor):
     return tuple(ff.words_to_limbs(P[c].reshape(NWORDS, -1)) for c in range(3))
 
@@ -196,6 +218,58 @@ def ec_padd(p_mod: int, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(P)
     kernels.launch("ec_padd", out.data_ptr(), P.data_ptr(), Q.data_ptr(),
                    P.shape[2:].numel(), ff.field_id(p_mod))
+    return out
+
+
+# ---------------- ec_pmadd ---------------- #
+
+
+def ec_pmadd_plain(p_mod: int, P: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    n = P.shape[2]
+    xl = ff.words_to_limbs(xy[:NWORDS]).expand(NL, n)
+    yl = ff.words_to_limbs(xy[NWORDS:]).expand(NL, n)
+    return _pt_to_words(_pmadd_l(p_mod, _pt_to_limbs(P), xl, yl), P.shape[2:])
+
+
+def ec_pmadd(p_mod: int, P: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Mixed add P + (x, y) of (3, 8, n) projective points and affine
+    points xy (16, n), or one affine point (16, 1) that every lane adds:
+    x words in rows 0-7, y words in rows 8-15 (Montgomery, never the
+    identity)."""
+    if P.dim() != 3 or P.shape[:2] != (3, NWORDS) or xy.dim() != 2 \
+            or xy.shape[0] != 2 * NWORDS or xy.shape[1] not in (1, P.shape[2]):
+        raise ValueError(f"bad mixed-add shapes {tuple(P.shape)} {tuple(xy.shape)}")
+    if _is_cpu(P):
+        return ec_pmadd_plain(p_mod, P, xy)
+    n = P.shape[2]
+    P = P.contiguous()
+    xy = xy.contiguous()
+    kernels.check_cuda(P, xy)
+    out = torch.empty_like(P)
+    kernels.launch("ec_pmadd", out.data_ptr(), P.data_ptr(), xy.data_ptr(), n,
+                   1 if xy.shape[1] == 1 and n != 1 else 0, ff.field_id(p_mod))
+    return out
+
+
+# ---------------- ec_pdbl ---------------- #
+
+
+def ec_pdbl_plain(p_mod: int, P: torch.Tensor) -> torch.Tensor:
+    return _pt_to_words(_pdbl_l(p_mod, _pt_to_limbs(P)), P.shape[2:])
+
+
+def ec_pdbl(p_mod: int, P: torch.Tensor) -> torch.Tensor:
+    """Complete doubling of (3, 8, *S) projective points over the base
+    field p_mod."""
+    if P.shape[:2] != (3, NWORDS):
+        raise ValueError(f"bad point shape {tuple(P.shape)}")
+    if _is_cpu(P):
+        return ec_pdbl_plain(p_mod, P)
+    P = P.contiguous()
+    kernels.check_cuda(P)
+    out = torch.empty_like(P)
+    kernels.launch("ec_pdbl", out.data_ptr(), P.data_ptr(), P.shape[2:].numel(),
+                   ff.field_id(p_mod))
     return out
 
 

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from halo_tpu.curves import Affine, CurveCfg
+from ..curves import Affine, CurveCfg
 
 from . import ecrows, ff, mont
 

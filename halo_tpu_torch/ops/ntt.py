@@ -3,7 +3,7 @@ halo_tpu/ops/ntt.py, _ntt_rows_fn :199-245, with its twiddle _plan
 :28-47).
 
 ark-poly's natural-order evaluation: ntt(coeffs)[i] = p(w^i), w the
-canonical 2^k root of unity (halo_tpu.fields.two_adic_root_of_unity).
+canonical 2^k root of unity (fields.two_adic_root_of_unity).
 Iterative Cooley-Tukey: a bit-reversal gather, then log2(n) stages of the
 ntt_butterfly kernel; the inverse ends in one field_mul by n^-1 (the TPU's
 mulc_rows).  Values stay canonical Montgomery throughout, so there is no
@@ -17,7 +17,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from halo_tpu.fields import R256, two_adic_root_of_unity
+from ..fields import R256, two_adic_root_of_unity
 
 from . import ff, mont
 

@@ -1,24 +1,101 @@
-"""PCDL commitments and opens on tensors (port of the device seams of
-halo_tpu/pcdl.py: _srs_msm :71-78, commit :192-201, open_without_eval
-:222-242, open_proof :334-338, check :390-395).
+"""PCDL: IPA (bulletproofs-style) polynomial commitments over the Pasta SRS
+(port of halo_tpu/pcdl.py).
 
-halo_tpu.pcdl reaches jax through ops.msm on every commit and check, and
-through ops.ipa for large opens; these versions route the same
-operations through the port's MSM (ops/msm2.py) and IPA (ops/ipa.py) on
-an explicit device.  The data classes and the succinct check are
-halo_tpu's (pure host code).  Only the non-hiding path (w = None, the
-PLONK prover's) is ported.
+The data classes, the polynomial h(X) and the succinct check are host
+code, copied from halo_tpu.pcdl (reference crates/accumulation/src/
+pcdl.rs).  The commitments, opens and the full check route their MSMs
+through the port's MSM (ops/msm2.py) and IPA (ops/ipa.py) on an explicit
+device.  Only the non-hiding path (w = None, the PLONK prover's) is
+ported.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
 import torch
 
-from halo_tpu.curves import Affine, CurveCfg
-from halo_tpu.errors import PcdlCheckError
-from halo_tpu.pcdl import EvalProof, poly_eval, succinct_check
-
+from .curves import Affine, CurveCfg, ec_mul, from_jac, jac_add, jac_mul, to_jac
+from .errors import PcdlCheckError
+from .fields import inv
 from .ops import ipa, msm2
+from .poseidon.sponge import Protocols, Sponge
+from .serde import Writer
+
+# ---------------- data structures ---------------- #
+
+
+@dataclass
+class EvalProof:
+    Ls: list[Affine]
+    Rs: list[Affine]
+    U: Affine
+    c: int
+    C_bar: Optional[Affine] = None
+    w_prime: Optional[int] = None
+
+    def serialize(self, w: Writer, cfg: CurveCfg) -> None:
+        w.vec(self.Ls, lambda p: w.point_compressed(cfg, p))
+        w.vec(self.Rs, lambda p: w.point_compressed(cfg, p))
+        w.point_compressed(cfg, self.U)
+        w.field(self.c)
+        w.option(self.C_bar, lambda p: w.point_compressed(cfg, p))
+        w.option(self.w_prime, lambda v: w.field(v))
+
+
+@dataclass
+class HPoly:
+    """h(X) := prod_{i=0}^{lg n - 1} (1 + xi_{lg n - i} X^(2^i)); xis[0] unused."""
+
+    xis: list[int]
+    r: int  # scalar field modulus
+
+    def eval(self, z: int) -> int:
+        m = self.r
+        lg_n = len(self.xis) - 1
+        v = (1 + self.xis[lg_n] * z) % m
+        z_i = z
+        for i in range(1, lg_n):
+            z_i = z_i * z_i % m
+            v = v * (1 + self.xis[lg_n - i] * z_i) % m
+        return v
+
+    def coeffs(self) -> list[int]:
+        m = self.r
+        lg_n = len(self.xis) - 1
+        out = [1]
+        for i in range(lg_n):
+            xi = self.xis[lg_n - i]
+            out = out + [c * xi % m for c in out]
+        return out
+
+
+@dataclass
+class Instance:
+    C: Affine
+    d: int
+    z: int
+    v: int
+    pi: EvalProof
+
+    def serialize(self, w: Writer, cfg: CurveCfg) -> None:
+        w.point_compressed(cfg, self.C)
+        w.u64(self.d)
+        w.field(self.z)
+        w.field(self.v)
+        self.pi.serialize(w, cfg)
+
+
+def poly_eval(cfg: CurveCfg, coeffs: list[int], z: int) -> int:
+    m = cfg.r
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * z + c) % m
+    return acc
+
+
+# ---------------- protocol functions ---------------- #
 
 
 def _non_hiding(w) -> None:
@@ -62,9 +139,46 @@ def open_proof(cfg: CurveCfg, p: list[int], C: Affine, d: int, z: int, device,
     return open_without_eval(cfg, p, C, d, z, v, device, w)
 
 
+def succinct_check(cfg: CurveCfg, C: Affine, d: int, z: int, v: int,
+                   pi: EvalProof) -> tuple[HPoly, Affine]:
+    """O(lg n) check, non-hiding proofs; returns (h, U) (reference
+    pcdl.rs:483-554)."""
+    from .srs import load_sh
+
+    n = d + 1
+    lg_n = n.bit_length() - 1
+    assert n & (n - 1) == 0
+    _non_hiding(pi.C_bar)
+    m = cfg.r
+    _, H = load_sh(cfg.name)
+    transcript = Sponge(Protocols.PCDL, cfg)
+
+    transcript.absorb_g([C])
+    transcript.absorb_fr([z, v])
+    xi_0 = transcript.challenge()
+    xis = [xi_0]
+    H_prime = ec_mul(cfg, H, xi_0)
+
+    C_i = jac_add(cfg, to_jac(C), jac_mul(cfg, to_jac(H_prime), v))
+
+    for i in range(lg_n):
+        transcript.absorb_fr([xis[i]])
+        transcript.absorb_g([pi.Ls[i], pi.Rs[i]])
+        xi_next = transcript.challenge()
+        xis.append(xi_next)
+        C_i = jac_add(cfg, C_i, jac_mul(cfg, to_jac(pi.Ls[i]), inv(xi_next, m)))
+        C_i = jac_add(cfg, C_i, jac_mul(cfg, to_jac(pi.Rs[i]), xi_next))
+
+    h = HPoly(xis=xis, r=m)
+    v_prime = pi.c * h.eval(z) % m
+    rhs = jac_add(cfg, jac_mul(cfg, to_jac(pi.U), pi.c), jac_mul(cfg, to_jac(H_prime), v_prime))
+    if from_jac(cfg, C_i) != from_jac(cfg, rhs):
+        raise PcdlCheckError("succinct_check failed: C_lg != U*c + H'*(c*h(z))")
+    return h, pi.U
+
+
 def check(cfg: CurveCfg, C: Affine, d: int, z: int, v: int, pi: EvalProof, device) -> None:
     """Full (linear-time) check (reference pcdl.rs:563-583)."""
     h, U = succinct_check(cfg, C, d, z, v, pi)
     if U != _srs_msm(cfg, h.coeffs(), device):
         raise PcdlCheckError("check failed: U != MSM(Gs, h_coeffs)")
-

@@ -13,9 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from halo_tpu.curves import CurveCfg
-from halo_tpu.fields import R256
-
+from ..curves import CurveCfg
+from ..fields import R256
 from ..ops import ff, msm2, mont, ntt
 
 

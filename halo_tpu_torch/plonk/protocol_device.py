@@ -15,9 +15,13 @@ from __future__ import annotations
 
 import torch
 
-from halo_tpu.curves import CurveCfg
-from halo_tpu.pcdl import Instance
-from halo_tpu.plonk.constants import (
+from .. import acc as acc_mod
+from .. import pcdl
+from ..curves import CurveCfg
+from ..pcdl import Instance
+from ..poseidon.sponge import Protocols, Sponge
+from ..utils.timing import RoundTimer
+from .constants import (
     CONSTRAINT_DEGREE_MULTIPLIER,
     Q_POLYS,
     R_POLYS,
@@ -25,7 +29,8 @@ from halo_tpu.plonk.constants import (
     T_POLYS,
     W_POLYS,
 )
-from halo_tpu.plonk.protocol import (
+from .engine import Engine
+from .protocol import (
     PlonkProof,
     PlonkProofCommitments,
     PlonkProofEvalProofs,
@@ -33,13 +38,7 @@ from halo_tpu.plonk.protocol import (
     _scalar_mds,
     gate_constraints,
 )
-from halo_tpu.plonk.trace import PlonkCircuit, PlonkPublicInputs, PlonkWitness
-from halo_tpu.poseidon.sponge import Protocols, Sponge
-from halo_tpu.utils.timing import RoundTimer
-
-from .. import acc as acc_mod
-from .. import pcdl
-from .engine import Engine
+from .trace import PlonkCircuit, PlonkPublicInputs, PlonkWitness
 
 
 class DevOps:

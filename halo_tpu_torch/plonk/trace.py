@@ -1,13 +1,19 @@
-"""Trace preprocessing on tensors (port of halo_tpu/plonk/trace.py
-Trace.new / consume / trace_pair :189-334).
+"""Trace preprocessing on tensors (port of halo_tpu/plonk/trace.py;
+reference crates/plonk/src/circuit/trace.rs).
 
-The copy-constraint permutation (build_sigma) and the public-input and
-witness data classes are halo_tpu's.  Interpolation runs as batched port
-NTTs that leave Montgomery rows on the device; the prover reuses them
-(`dev_polys`, torch tensors keyed as in halo_tpu), and the host int lists
-are lazy views that convert only when a host consumer asks.  Without a
-frozen circuit the q/r/id/sigma commitments are one batched port MSM.
-The static-circuit cache of halo_tpu (an IVC optimisation) is not ported.
+build_sigma forms cycles from the copy-constraint classes (sigma[from] =
+to, cycle direction as in trace.rs:83-89); public inputs are negated and
+padded before interpolation (trace.rs:162-165).  Interpolation runs as
+batched port NTTs that leave Montgomery rows on the device; the prover
+reuses them (`dev_polys`, torch tensors keyed as in halo_tpu), and the host
+int lists are lazy views that convert only when a host consumer asks.
+Without a frozen circuit the q/r/id/sigma commitments are one batched port
+MSM; with one (the IVC path) its commitments are taken as they are.
+
+Static-circuit cache: for a frozen circuit, re-proven every IVC step, the
+sigma map and the interpolated q/r/id/sigma rows depend only on the
+circuit's structure, so they are computed once per (circuit, device) and
+kept on the device (halo_tpu/plonk/trace.py:103-121,160-165).
 """
 
 from __future__ import annotations
@@ -17,23 +23,107 @@ from typing import Optional
 
 import torch
 
-from halo_tpu.acc import Accumulator
-from halo_tpu.curves import Affine, CurveCfg
-from halo_tpu.hostpoly import HostEvals, domain_element
-from halo_tpu.plonk.circuit import TRACE_CURVE, TraceData
-from halo_tpu.plonk.trace import (
-    PlonkCircuit,
-    PlonkCircuitCommitments,
-    PlonkPublicInputs,
-    PlonkWitness,
-    PlonkWitnessPolys,
-    build_sigma,
-)
-
 from .. import acc as acc_mod
 from .. import pcdl
-from ..hostpoly import LazyHostPolys, interpolate_evals_batch
+from ..acc import Accumulator
+from ..curves import Affine, CurveCfg
+from ..hostpoly import HostEvals, LazyHostPolys, domain_element, interpolate_evals_batch
+from .circuit import TRACE_CURVE, SlotId, TraceData
+from .constants import S_POLYS
 from .engine import Engine
+
+
+@dataclass
+class PlonkCircuitCommitments:
+    qs: list[Affine]
+    rs: list[Affine]
+    ids: list[Affine]
+    sigmas: list[Affine]
+
+
+@dataclass
+class PlonkCircuit:
+    rows: int
+    public_input_count: int
+    omega: int
+    Cs: PlonkCircuitCommitments
+
+
+@dataclass
+class PlonkPublicInputs:
+    public_inputs: list[int]
+    acc_prev: Accumulator
+
+
+@dataclass
+class PlonkWitnessPolys:
+    ws: list[list[int]]
+    qs: list[list[int]]
+    rs: list[list[int]]
+    ids: list[list[int]]
+    sigmas: list[list[int]]
+
+
+@dataclass
+class PlonkWitness:
+    omega: int
+    polys: PlonkWitnessPolys
+    w_evals: list[HostEvals]
+    # Montgomery device rows of `polys` from Trace.new's batched
+    # interpolation, keys {"ws", "qs", "rs", "ids", "sigmas", "w_evals"} ->
+    # (8, k, n); the prover uses them instead of converting the host lists
+    dev_polys: Optional[dict] = None
+
+
+def build_sigma(m: int, eqs: list[list[SlotId]], rows: int):
+    """(sigma slot map, id evals x8, sigma evals x8) (trace.rs:65-105)."""
+    total = rows * S_POLYS
+    sigma = list(range(total))  # sigma[u] = image slot index (as usize)
+    for wires in eqs:
+        if len(wires) <= 1:
+            continue
+        for i in range(len(wires)):
+            frm = wires[i].to_usize(rows)
+            to = wires[(i + 1) % len(wires)]
+            sigma[frm] = to.to_usize(rows)
+
+    # SlotId.from_usize(u).to_scalar() is u + 1
+    id_evals = [HostEvals.from_vec_and_domain(m, list(range(col * rows + 1, (col + 1) * rows + 1)))
+                for col in range(S_POLYS)]
+    sigma_evals = [HostEvals.from_vec_and_domain(m, [u + 1 for u in sigma[col * rows:(col + 1) * rows]])
+                   for col in range(S_POLYS)]
+    return sigma, id_evals, sigma_evals
+
+
+TRACE_CACHE_ENTRIES = 4  # each pins (8, 49, n) device rows: ~100 MB at 2^16
+_STATIC_TRACE_CACHE: dict = {}  # LRU
+
+
+def _static_key(cfg: CurveCfg, circuit: PlonkCircuit, device: torch.device):
+    cs = circuit.Cs
+    return (cfg.name, circuit.rows, str(device),
+            tuple(cs.qs), tuple(cs.rs), tuple(cs.ids), tuple(cs.sigmas))
+
+
+def _static_polys(cfg: CurveCfg, data: TraceData, device, circuit: Optional[PlonkCircuit]):
+    """(sigma, (8, n_q + n_r + 2*S_POLYS, n) Montgomery coefficient rows of
+    the q, r, id and sigma polys, (n_q, n_r, n_s)), from the cache when the
+    circuit is frozen and was seen before."""
+    key = _static_key(cfg, circuit, device) if circuit is not None else None
+    entry = _STATIC_TRACE_CACHE.pop(key, None) if key is not None else None
+    if entry is None:
+        m = cfg.r
+        sigma, id_evals, sigma_evals = build_sigma(m, data.copy_constraints, data.rows)
+        r_evals = [HostEvals.from_vec_and_domain(m, col) for col in data.rs]
+        q_evals = [HostEvals.from_vec_and_domain(m, col) for col in data.qs]
+        _, static_dev, _ = interpolate_evals_batch(
+            q_evals + r_evals + id_evals + sigma_evals, device, want_host=False)
+        entry = (sigma, static_dev, (len(q_evals), len(r_evals), len(id_evals)))
+    if key is not None:
+        _STATIC_TRACE_CACHE[key] = entry  # insert or LRU touch
+        while len(_STATIC_TRACE_CACHE) > TRACE_CACHE_ENTRIES:
+            _STATIC_TRACE_CACHE.pop(next(iter(_STATIC_TRACE_CACHE)))
+    return entry
 
 
 @dataclass
@@ -70,12 +160,7 @@ class Trace:
         d = n - 1
         omega = domain_element(m, n, 1)
 
-        sigma, id_evals, sigma_evals = build_sigma(m, data.copy_constraints, n)
-        r_evals = [HostEvals.from_vec_and_domain(m, col) for col in data.rs]
-        q_evals = [HostEvals.from_vec_and_domain(m, col) for col in data.qs]
-        n_q, n_r, n_s = len(q_evals), len(r_evals), len(id_evals)
-        _, static_dev, _ = interpolate_evals_batch(
-            q_evals + r_evals + id_evals + sigma_evals, device, want_host=False)
+        sigma, static_dev, (n_q, n_r, n_s) = _static_polys(cfg, data, device, circuit)
         parts = torch.split(static_dev, [n_q, n_r, n_s, n_s], dim=1)
 
         pi = list(data.public_inputs) + [0] * (n - len(data.public_inputs))

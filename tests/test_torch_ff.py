@@ -3,9 +3,8 @@ Python ints and halo_tpu.ops.ff, on the same seeded inputs.
 
 Tolerance: zero.  This is exact modular arithmetic, compared as ints.
 
-The file collects two tests that loop over the checks (ROADMAP, "Tier-1
-budget": pytest-xdist runs the files with the most tests first, and the
-suite's long JAX files must keep starting first).
+One test runs every check: the suite's test count sets pytest-xdist's
+batches under `--dist load` (ROADMAP, "Tier-1 budget").
 """
 
 import os
@@ -111,15 +110,11 @@ def _check_scalar_helpers(m):
         ff.field_id(97)
 
 
-def test_plain_field_ops_vs_ints():
+def test_plain_field_ops_vs_ints_and_jax():
     for m in MODS:
         _check_rows_roundtrip(m)
         _check_lazy_limbs_edge_values(m)
         _check_scalar_helpers(m)
-
-
-def test_plain_field_ops_vs_ints_and_jax():
-    for m in MODS:
         _check_add_sub_vs_ints_and_jax(m)
         _check_mont_mul_vs_ints_and_jax(m)
         _check_to_mont_vs_jax(m)

@@ -5,10 +5,6 @@ version.
 
 Tolerance: zero.  Field values are compared as ints, points as affine
 ints (projective coordinates of equal points may differ by a scale).
-
-The file collects two tests that loop over the checks (ROADMAP, "Tier-1
-budget": pytest-xdist runs the files with the most tests first, and the
-suite's long JAX files must keep starting first).
 """
 
 import os
@@ -175,13 +171,18 @@ def _check_wrappers_take_plain_version_only_on_cpu():
         mont.ntt_butterfly(FP_MOD, a, a, 1, 1)
     with pytest.raises(ValueError, match="unsupported device"):
         mont.ec_padd(FQ_MOD, P, P)
+    with pytest.raises(ValueError, match="unsupported device"):
+        mont.ec_pmadd(FQ_MOD, P, torch.zeros((16, 4), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        mont.ec_pdbl(FQ_MOD, P)
 
 
 def _check_kernel_sources_not_built_on_import():
     # importing the wrappers builds nothing; the library path is derived
     # from the sources alone
     assert kernels.library_path().name.startswith("libhalo_kernels-")
-    assert set(kernels.counts()) == {"field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan"}
+    assert set(kernels.counts()) == {"field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan",
+                                     "ec_pmadd", "ec_pdbl"}
 
 
 # ---------------- on the card: each kernel against its plain version ----------------
@@ -217,6 +218,13 @@ def _check_cuda_ec_kernels(cuda_device, cfg):
     neg = (torch.rand((6, 300), generator=g) < 0.5).to(cuda_device)
     got = mont.ec_pmadd_scan(cfg.p, xy, idx, neg)
     assert got.equal(mont.ec_pmadd_scan_plain(cfg.p, xy, idx, neg))
+    # ec_pmadd per lane and with one broadcast point, ec_pdbl on the edge lanes
+    Qa = [a if a is not None else pts[0] for a in Q]
+    Qxy = torch.cat([ff.to_rows([q[0] * R256 % cfg.p for q in Qa], cuda_device),
+                     ff.to_rows([q[1] * R256 % cfg.p for q in Qa], cuda_device)])
+    for operand in (Qxy, Qxy[:, 1:2].contiguous()):
+        assert mont.ec_pmadd(cfg.p, Pr, operand).equal(mont.ec_pmadd_plain(cfg.p, Pr, operand))
+    assert mont.ec_pdbl(cfg.p, Pr).equal(mont.ec_pdbl_plain(cfg.p, Pr))
 
 
 def test_plain_versions():

@@ -4,9 +4,8 @@ halo_tpu.curves.msm_host, single and batched, at n <= 2^10.
 
 Tolerance: zero (affine points compared as ints).
 
-The file collects two tests that loop over their cases (ROADMAP, "Tier-1
-budget": pytest-xdist runs the files with the most tests first, and the
-suite's long JAX files must keep starting first).
+One test runs every check: the suite's test count sets pytest-xdist's
+batches under `--dist load` (ROADMAP, "Tier-1 budget").
 """
 
 import os
@@ -86,10 +85,11 @@ def _check_srs_rows_multi_pads_to_pow2(cfg):
 
 
 def _check_derived_srs_matches_load_srs(cfg):
-    """The port's SRS derivation (native batch scalar mul) is byte-equal to
-    halo_tpu.srs.load_srs, and the packed device table to convert.srs_rows."""
+    """The port's SRS derivation (scalar_mul_rows over the plain ec_pdbl and
+    ec_pmadd) is byte-equal to halo_tpu.srs.load_srs, and the packed device
+    table to convert.srs_rows."""
     n = 256
-    mine = srs.derive_srs(cfg.name, n)
+    mine = srs.load_srs(cfg.name, n, "cpu")
     ref = load_srs(cfg.name, n)
     assert (mine.S, mine.H) == (ref.S, ref.H)
     assert mine.gs_x.tobytes() == ref.gs_x.tobytes()
@@ -103,9 +103,6 @@ def test_msm_matches_host():
             _check_msm_explicit_points(cfg, n)
         _check_msm_srs_1024(cfg)
         _check_srs_rows_multi_pads_to_pow2(cfg)
-
-
-def test_msm_batched_and_derived_srs():
     for c_bits in (4, 8):
         _check_msm_batched_with_point_maps(c_bits)
     for cfg in CURVES:

@@ -3,9 +3,8 @@ natural-order evaluation), forward and inverse, at n <= 2^10.
 
 Tolerance: zero (exact field values compared as ints).
 
-The file collects two tests that loop over their cases (ROADMAP, "Tier-1
-budget": pytest-xdist runs the files with the most tests first, and the
-suite's long JAX files must keep starting first).
+One test runs every check: the suite's test count sets pytest-xdist's
+batches under `--dist load` (ROADMAP, "Tier-1 budget").
 """
 
 import os
@@ -45,9 +44,6 @@ def test_ntt_matches_host():
                 v = [rng.randrange(m) for _ in range(n)]
                 got = _unmont(ntt.ntt(m, _mont_rows(v, m), inverse), m)
                 assert got == ntt_host(m, v, inverse), (hex(m)[-8:], log_n, inverse)
-
-
-def test_batched_roundtrip_and_extension():
     for cfg in (PALLAS, VESTA):
         _check_batched_roundtrip_and_extension(cfg)
 

@@ -5,10 +5,6 @@ built from the same TraceBuilder, whose device mirrors equal halo_tpu's
 through convert.py.
 
 Tolerance: zero.  Everything is exact; proofs are compared as bytes.
-
-The file collects two tests that loop over their cases (ROADMAP, "Tier-1
-budget": pytest-xdist runs the files with the most tests first, and the
-suite's long JAX files must keep starting first).
 """
 
 import os
@@ -111,7 +107,7 @@ def _check_pcdl_rejects_hiding_and_bad_check():
     pi = pcdl.open_proof(cfg, p, C, 3, 9, CPU)
     v = hpcdl.poly_eval(cfg, p, 9)
     pcdl.check(cfg, C, 3, 9, v, pi, CPU)
-    from halo_tpu.errors import PcdlCheckError
+    from halo_tpu_torch.errors import PcdlCheckError
 
     with pytest.raises(PcdlCheckError):
         pcdl.check(cfg, C, 3, 9, (v + 1) % cfg.r, pi, CPU)
