@@ -17,7 +17,15 @@ phase falls back to the CPU or to a plain version:
               canonical (< p).  ec_pmadd and ec_pdbl run at the SRS shape
               (2^log_rows + 2 lanes) with identity, P = Q and P = -Q lanes;
               ec_padd on the v1 kernel's cases and field_mul on canonical
-              inputs stand for the v1 kernels
+              inputs stand for the v1 kernels.  Also held equal: field_mul
+              on 0, 1, p - 1 and on pairs whose product needs the final
+              conditional subtract (both fields), ec_padd at each
+              thread-group size it picks by width (16384 and 8449 lanes:
+              two threads a lane; a _tree_sum width, 2048, and an odd
+              width, 1025: four; the timed width: one), the scan at
+              depths 16 (an MSM of <= 4096 points) and 64 (IPA rounds)
+              with odd lane counts (R 16 x F 2049, R 64 x F 16383) and,
+              at 2^16, a 16-poly batched commitment's 2^19 lanes
   5. golden   the port's prover reproduces tests/fixtures/proof_{pallas,
               vesta}.bin byte for byte
   6. plonk    a Pallas Poseidon-chain circuit of 2^log_rows rows (bench.py's
@@ -42,11 +50,18 @@ nvidia-smi line, and {"ok": true, "device": {...}}.  The script imports
 torch and halo_tpu_torch only, never jax or halo_tpu; the run fails if any
 module of either was loaded.
 
+A kernel's ms is host-paced, as since the first port: the wrapper called
+back to back between two CUDA events, which for a kernel shorter than
+~0.03 ms reads how fast the host issues the wrapper.  device_ms beside it
+is the same calls captured in a CUDA graph and replayed: the kernel's own
+time.  plain_ms is host-paced.
+
 bound_ms is the least time the card could take for a kernel's work at the
-timed shape: the larger of its bytes (each input read once, each output
-written once) over 3.35 TB/s and its 32-bit multiply-adds (136 per field
-product) over 16.7 T/s (132 SMs x 64 multiply-adds per clock x 1.98 GHz,
-the integer rate of an H100 SXM at its 700 W limit).
+timed shape (halo_tpu_torch/measure.py: work() and bound()): the larger
+of its bytes (each input read once, each output written once) over
+3.35 TB/s and its 32-bit multiply-adds (136 per field product) over
+16.7 T/s (132 SMs x 64 multiply-adds per clock x 1.98 GHz, the integer
+rate of an H100 SXM at its 700 W limit).
 """
 
 from __future__ import annotations
@@ -76,52 +91,10 @@ PATH_KERNELS = {
 }
 IVC_LOG_ROWS = 16
 IVC_ROWS = 1 << IVC_LOG_ROWS
-HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_S = 132 * 64 * 1.98e9
-FE_MUL_OPS = 136  # 32x32-bit multiply-adds in one 8-word CIOS product
 
 
 def _phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
-
-
-def _time_ms(fn, iters: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _bound(nbytes: float, products: float) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = products * FE_MUL_OPS / IMAD_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def poseidon_chain(target_rows: int, seed: int):
-    """bench.py's circuit (bench.py:227-250): 12 rows per permutation."""
-    from halo_tpu_torch.plonk.circuit import TRACE_CURVE, CircuitSpec, TraceBuilder
-
-    rng = random.Random(seed)
-    spec = CircuitSpec()
-    w = [spec.fp_witness() for _ in range(3)]
-    wires = tuple(w)
-    for _ in range(max(1, (target_rows - 8) // 12)):
-        for i in range(11):
-            wires = spec.poseidon(i, wires)
-        wires = spec.poseidon_finish(wires)
-    spec.output_gate(wires[0])
-    tb = TraceBuilder(spec)
-    for wi in w:
-        tb.witness(wi, rng.randrange(TRACE_CURVE[0].r))
-    return tb
 
 
 def golden_builder():
@@ -162,7 +135,7 @@ def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
     shapes a path of 2^log_rows rows gives it."""
     import torch
 
-    from halo_tpu_torch import srs
+    from halo_tpu_torch import measure, srs
     from halo_tpu_torch.ops import ecrows, ff, mont, msm2
 
     rng = random.Random(seed)
@@ -175,7 +148,9 @@ def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
     def rows(mod, k):
         return ff.to_rows([rng.randrange(mod) for _ in range(k)], dev)
 
-    def report(name, got, want, modulus, ms, plain_ms, nbytes, products):
+    def report(name, got, want, modulus, call, iters, plain, work):
+        """Hold got against want, then time `call` (the kernel wrapper) and
+        `plain` (its plain version) at this shape; work: measure.work()."""
         if got.shape != want.shape:
             raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
         err = int((got.long() - want.long()).abs().max())
@@ -185,19 +160,28 @@ def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
         vals = ff.from_rows(words[:, :: max(1, words.shape[1] // 4096)])
         if max(vals) >= modulus:
             raise AssertionError(f"{name}: output not canonical")
-        bound_ms, bound_by = _bound(nbytes, products)
+        bound_ms, bound_by = measure.bound(*work)
+        ms = measure.host_paced_ms(call, iters)
+        dev_ms = measure.device_ms(call, iters)
+        # the plain versions take 4-400 ms a call: 3 calls, 1 for the scan
+        plain_ms = measure.host_paced_ms(plain, 3 if iters > 5 else 1)
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": None, "shape": list(got.shape)}
+                     "bound_by": bound_by, "library_ms": None, "device_ms": dev_ms,
+                     "shape": list(got.shape)}
         _phase("kernels", f"{name} ({cfg.name}): equal to plain, {tuple(got.shape)}; "
-                          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                          f"bound {bound_ms:.4f} ms ({bound_by})")
+                          f"kernel {ms:.4f} ms host-paced ({dev_ms:.4f} ms device), plain "
+                          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+
+    def equal(name, got, want):
+        if not got.equal(want):
+            raise AssertionError(f"{name}: kernel and plain differ")
 
     # field_mul at the 8n extended domain; also the broadcast (mulc) form,
     # and canonical (non-Montgomery) operands, the v1 pallas_ff product
     a, b = rows(m, big_n), rows(m, big_n)
     report("field_mul", mont.field_mul(m, a, b), mont.field_mul_plain(m, a, b), m,
-           _time_ms(lambda: mont.field_mul(m, a, b), 20),
-           _time_ms(lambda: mont.field_mul_plain(m, a, b), 3), 96 * big_n, big_n)
+           lambda: mont.field_mul(m, a, b), 20, lambda: mont.field_mul_plain(m, a, b),
+           measure.work("field_mul", big_n))
     if not mont.field_mul(m, a, b[:, :1]).equal(mont.field_mul_plain(m, a, b[:, :1])):
         raise AssertionError("field_mul: broadcast form differs from plain")
     xs = [rng.randrange(m) for _ in range(64)]
@@ -206,15 +190,28 @@ def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
     got = ff.from_rows(mont.field_mul(m, ff.to_rows(xs, dev), ff.to_rows(ys, dev)))
     if got != [x * y * rinv % m for x, y in zip(xs, ys)]:
         raise AssertionError("field_mul: canonical product differs from x*y/R")
+    # the field core's edge values on both fields: 0, 1, p - 1 against each
+    # other, and pairs whose product lands in [p, 2p) before the final
+    # conditional subtract
+    for mod in (cfg.r, cfg.p):
+        edge = [0, 1, mod - 1]
+        xs = [x for x in edge for _ in edge] + [x for x, _ in _subtract_pairs(mod, rng, 64)]
+        ys = edge * 3 + [y for _, y in _subtract_pairs(mod, rng, 64)]
+        xr, yr = ff.to_rows(xs, dev), ff.to_rows(ys, dev)
+        equal("field_mul edge values", mont.field_mul(mod, xr, yr),
+              mont.field_mul_plain(mod, xr, yr))
+        if ff.from_rows(mont.field_mul(mod, xr, yr)) != [
+                x * y * pow(1 << 256, -1, mod) % mod for x, y in zip(xs, ys)]:
+            raise AssertionError("field_mul: an edge-value product differs from x*y/R")
 
     # one butterfly stage over the 8n domain (half = 2^10 of a 2^(log n) table)
     half, tw = min(1 << 10, big_n // 2), rows(m, big_n // 2)
     stride = (big_n // 2) // half
     report("ntt_butterfly", mont.ntt_butterfly(m, a, tw, half, stride),
            mont.ntt_butterfly_plain(m, a, tw, half, stride), m,
-           _time_ms(lambda: mont.ntt_butterfly(m, a, tw, half, stride), 20),
-           _time_ms(lambda: mont.ntt_butterfly_plain(m, a, tw, half, stride), 3),
-           64 * big_n + 32 * half, big_n // 2)
+           lambda: mont.ntt_butterfly(m, a, tw, half, stride), 20,
+           lambda: mont.ntt_butterfly_plain(m, a, tw, half, stride),
+           measure.work("ntt_butterfly", big_n, half=half))
 
     # points: the PLONK path's SRS generators; the identity, equal and
     # opposite lanes a complete formula must get right come first
@@ -241,9 +238,16 @@ def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
     reps = (512 * 129) // P.shape[-1] + 1
     Pw, Qw = P.repeat(1, 1, reps), Q.repeat(1, 1, reps)
     report("ec_padd", mont.ec_padd(p, Pw, Qw), mont.ec_padd_plain(p, Pw, Qw), p,
-           _time_ms(lambda: mont.ec_padd(p, Pw, Qw), 20),
-           _time_ms(lambda: mont.ec_padd_plain(p, Pw, Qw), 3),
-           288 * Pw.shape[-1], 14 * Pw.shape[-1])
+           lambda: mont.ec_padd(p, Pw, Qw), 20, lambda: mont.ec_padd_plain(p, Pw, Qw),
+           measure.work("ec_padd", Pw.shape[-1]))
+    # every thread-group size the kernel picks by width on the main path
+    # (kernels.cu group_for; on 132 SMs): the IVC step's 16,384-lane
+    # launches and the narrowest two-thread width, 8,449 (G = 2); a
+    # _tree_sum level's width, 2048, and an odd width whose last warp
+    # holds dead lanes, 1025 (G = 4); the width above is G = 1
+    for lanes in (16384, 8449, 2048, 1025):
+        equal(f"ec_padd at {lanes} lanes", mont.ec_padd(p, Pw[..., :lanes], Qw[..., :lanes]),
+              mont.ec_padd_plain(p, Pw[..., :lanes], Qw[..., :lanes]))
 
     # ec_pmadd and ec_pdbl at the SRS derivation's shape (n + 2 lanes):
     # lanes identity + A, A + A, A + (-A), then SRS generators in turn
@@ -261,8 +265,8 @@ def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
             or not all(cfg.is_on_curve(q) for q in S[3:] + D[3:]):
         raise AssertionError("ec_pmadd/ec_pdbl: wrong result on an edge lane")
     report("ec_pmadd", mont.ec_pmadd(p, Pd, Qd), mont.ec_pmadd_plain(p, Pd, Qd), p,
-           _time_ms(lambda: mont.ec_pmadd(p, Pd, Qd), 20),
-           _time_ms(lambda: mont.ec_pmadd_plain(p, Pd, Qd), 3), 256 * lanes, 13 * lanes)
+           lambda: mont.ec_pmadd(p, Pd, Qd), 20, lambda: mont.ec_pmadd_plain(p, Pd, Qd),
+           measure.work("ec_pmadd", lanes))
     g = Qd[:, :1].contiguous()  # one broadcast base, as the SRS derivation adds G
     if not mont.ec_pmadd(p, Pd, g).equal(mont.ec_pmadd_plain(p, Pd, g)):
         raise AssertionError("ec_pmadd: broadcast form differs from plain")
@@ -271,8 +275,8 @@ def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
     if not mont.field_mul(p, gx, r2).equal(mont.field_mul_plain(p, gx, r2)):
         raise AssertionError("field_mul: the one-lane broadcast form differs from plain")
     report("ec_pdbl", mont.ec_pdbl(p, Pd), mont.ec_pdbl_plain(p, Pd), p,
-           _time_ms(lambda: mont.ec_pdbl(p, Pd), 20),
-           _time_ms(lambda: mont.ec_pdbl_plain(p, Pd), 3), 192 * lanes, 9 * lanes)
+           lambda: mont.ec_pdbl(p, Pd), 20, lambda: mont.ec_pdbl_plain(p, Pd),
+           measure.work("ec_pdbl", lanes))
 
     # ec_pmadd_scan at a commitment's scan shape: 2^log_rows SRS points,
     # one poly's windows (c = 8: 32) x its lanes, R steps
@@ -283,9 +287,34 @@ def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
     neg = (torch.rand((R, F), generator=gen) < 0.5).to(dev)
     report("ec_pmadd_scan", mont.ec_pmadd_scan(p, xy, idx, neg),
            mont.ec_pmadd_scan_plain(p, xy, idx, neg), p,
-           _time_ms(lambda: mont.ec_pmadd_scan(p, xy, idx, neg), 5),
-           _time_ms(lambda: mont.ec_pmadd_scan_plain(p, xy, idx, neg), 1),
-           64 * min(n, R * F) + 5 * R * F + 96 * R * F, 13 * R * F)
+           lambda: mont.ec_pmadd_scan(p, xy, idx, neg), 5,
+           lambda: mont.ec_pmadd_scan_plain(p, xy, idx, neg),
+           measure.work("ec_pmadd_scan", R=R, F=F, npts=n))
+    # depths 16 (an MSM of <= 4096 points) and 64 (IPA rounds) with lane
+    # counts whose last warp holds dead lanes, and (at 2^16) a 16-poly
+    # batched commitment's 2^19 lanes
+    shapes = [(16, 2049), (64, 16383)] + ([(R, 16 * F)] if log_rows == IVC_LOG_ROWS else [])
+    for r_, f_ in shapes:
+        idx = torch.randint(0, n, (r_, f_), generator=gen, dtype=torch.int32).to(dev)
+        neg = (torch.rand((r_, f_), generator=gen) < 0.5).to(dev)
+        equal(f"ec_pmadd_scan R {r_} x F {f_}", mont.ec_pmadd_scan(p, xy, idx, neg),
+              mont.ec_pmadd_scan_plain(p, xy, idx, neg))
+    _phase("kernels", f"{cfg.name}: edge-value products, ec_padd at 16384, 8449, 2048 "
+                      f"and 1025 lanes, "
+                      f"scans at {shapes} equal to plain")
+    return out
+
+
+def _subtract_pairs(m: int, rng, k: int) -> list[tuple[int, int]]:
+    """k operand pairs whose Montgomery product (a*b + M*m) / 2^256, M =
+    -a*b/m mod 2^256, lands in [m, 2m): the final subtract must fire."""
+    r = 1 << 256
+    minv = -pow(m, -1, r) % r
+    out = []
+    while len(out) < k:
+        a, b = rng.randrange(m), rng.randrange(m)
+        if (a * b + (a * b * minv % r) * m) >> 256 >= m:
+            out.append((a, b))
     return out
 
 
@@ -293,14 +322,14 @@ def _plonk_path(dev, log_rows: int, seed: int) -> dict:
     import torch
 
     from halo_tpu_torch import device as devmod
-    from halo_tpu_torch import pcdl, srs
+    from halo_tpu_torch import measure, pcdl, srs
     from halo_tpu_torch.curves import PALLAS
     from halo_tpu_torch.ops import msm2
     from halo_tpu_torch.plonk import protocol, trace
 
     cfg = PALLAS
     n = 1 << log_rows
-    fp_data, _ = poseidon_chain(n, seed).trace()
+    fp_data, _ = measure.poseidon_chain(n, seed).trace()
     if fp_data.rows != n:
         raise AssertionError(f"circuit has {fp_data.rows} rows, wanted {n}")
 
@@ -477,7 +506,9 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": "halo_tpu_torch/csrc/kernels.cu",
          "replaces": REPLACES[name], "launches": by_path["ivc"][name],
          "launches_by_path": {path: c[name] for path, c in by_path.items()},
-         "registers": regs[name], **checked["ivc pallas"][name],
+         "registers": regs[name] if name in regs else
+         {k.split()[1]: v for k, v in regs.items() if k.split()[0] == name},
+         **checked["ivc pallas"][name],
          "shapes_checked": {path: c[name]["shape"] for path, c in checked.items()}}
         for name in kernels.NAMES]}))
     print(card)

@@ -3,9 +3,10 @@
 // Layout: limb-major rows.  A batch of N field elements is 8 rows of N
 // words (word k of lane i at k*N + i), so neighbouring threads read
 // neighbouring addresses; a batch of N projective points is 3 such
-// blocks (X, Y, Z).  Every kernel is one thread per lane, ends in
-// canonical values, and launches on the caller's stream without
-// synchronising.  Each C entry returns cudaGetLastError() as an int.
+// blocks (X, Y, Z).  Every kernel ends in canonical values and launches
+// on the caller's stream without synchronising.  Each C entry picks the
+// field's template once per launch and returns cudaGetLastError() as an
+// int.
 //
 // What each replaces (halo_tpu/ops/pallas_mont.py):
 //   field_mul      _mm_kernel :256 and _mulc_kernel :474 (b broadcast),
@@ -21,14 +22,47 @@
 //                  around it (halo_tpu/ops/msm2.py:398-417)
 //
 // Bounds on an H100: field_mul and ntt_butterfly move 96 bytes per
-// element for ~130 integer multiply-adds, so they are memory-bound near
-// 3.35 TB/s at large N.  The EC kernels are bound by the 32-bit multiply
-// throughput: ec_padd (14 products, 288 bytes a lane), ec_pmadd (13
-// products, 256 bytes a lane, 192 with a broadcast operand), ec_pdbl (9
-// products, 192 bytes a lane) and ec_pmadd_scan (13 products per step,
-// held in registers across R steps, with a random 64-byte gather of the
-// affine point per step).  This first version is plain CUDA: one thread
-// per lane, no shared memory, no PTX carry chains.
+// element for one field product, so they are memory-bound near 3.35 TB/s
+// at large N; they are one thread per lane.  ec_pmadd (11 products, 256
+// bytes a lane) and ec_pdbl (8 products, 192 bytes) are one thread per
+// lane as well.
+//
+// ec_padd and ec_pmadd_scan are redesigned for latency, which bounds them
+// at most of the main path's shapes.  In an IVC step (2^16 rows) the scan
+// runs R = 64 dependent mixed adds per lane over F = 32,768 lanes (each
+// single commitment and each IPA round, whose L and R are two MSMs over
+// n/2 = 32,768 original points) or over the 2^19 lanes of a batched
+// commitment; in the 2^14 proof over F = 8,192 lanes.  ec_padd runs 1,920
+// launches a step, the levels of msm2's _excl_prefix and _tree_sum at 32
+// to 32,736 lanes (a third of them at <= 2,048) and the bucket assembly
+// at up to 2^19.  At F = 8,192 the card holds 2 warps an SM, so one lane's
+// latency is the launch's time; from F = 32,768 on, and at 66,082 bucket
+// lanes, the kernels are bound by the rate the SMs issue the field core's
+// instructions (multiply-adds at half rate), not by memory.  What the
+// design does about it:
+//   - the field core (field.cuh) cuts a product's dependent path to two
+//     interleaved carry chains and its work to 88 32x32-bit multiplies
+//     (the modulus is a template constant; a dense CIOS does 136), and
+//     each b3 = 15 product to four doublings and a subtraction;
+//   - a group of G threads of one warp owns one lane and splits each
+//     formula level's products (5 + 6 in the mixed add, 6 + 6 in the
+//     add) between its threads, exchanging 8-word results by
+//     __shfl_sync, so a step's dependent path is ceil(5/G) + ceil(6/G)
+//     products instead of 11;
+//   - the scan keeps its accumulator in registers across the R steps,
+//     loads step t + 1's index, sign and point (64 bytes as four 16-byte
+//     loads from a point-major copy of the table) before it computes step
+//     t, and stores each prefix from the group's first thread, coalesced.
+// The thread-group rule, the same for both kernels: G is the largest of
+// 4, 2, 1 with G * lanes <= SMs * 256, i.e. while the launch fits one
+// 256-thread block per SM (on an H100, 132 SMs: G = 4 up to 8,448 lanes,
+// 2 up to 16,896, else 1).  Below that width the card has idle SMs and a
+// lane's latency is the launch's time; above it the card is full and the
+// extra threads only add shuffles and the adds every thread of a group
+// repeats.  So the 2^14 proof's scans run at G = 4, the IVC step's at
+// G = 1, and ec_padd at 4, 2 or 1 by the level's width.  Both kernels
+// are __launch_bounds__(256): G = 1 ec_padd takes 128 registers, two
+// blocks an SM, so its 66,082-lane launch (259 blocks) is one wave.
 //
 // field_mul on canonical inputs is also the v1 canonical Montgomery
 // product of halo_tpu/ops/pallas_ff.py:_mont_mul_kernel :77.
@@ -43,6 +77,19 @@ using halo::Pt;
 namespace {
 
 constexpr int kThreads = 256;
+
+// Threads per lane of ec_padd and ec_pmadd_scan: the largest G of 4, 2, 1
+// whose G * lanes threads fit one 256-thread block per SM of the current
+// device; past that, more threads per lane only add work.
+int group_for(long long lanes) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    sms = 1;
+  }
+  const long long room = (long long)sms * kThreads;
+  return 4 * lanes <= room ? 4 : 2 * lanes <= room ? 2 : 1;
+}
 
 __device__ __forceinline__ void load_fe(Fe& r, const uint32_t* base, long long stride, long long i) {
 #pragma unroll
@@ -66,9 +113,29 @@ __device__ __forceinline__ void store_pt(uint32_t* base, long long stride, long 
   store_fe(base + 16 * stride, stride, i, v.Z);
 }
 
+// A thread's lane and role in a group of G threads; lanes past n repeat
+// lane n - 1 (their group computes but does not store), so every thread
+// of a warp with a live lane takes part in the group's shuffles.
+template <int G>
+struct GroupLane {
+  long long lane;
+  int role;
+  bool live;
+  bool warp_dead;
+  __device__ __forceinline__ explicit GroupLane(long long n) {
+    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    lane = t / G;
+    role = (int)(t % G);
+    live = lane < n;
+    warp_dead = (t - (threadIdx.x & 31)) / G >= n;
+    if (!live) lane = n - 1;
+  }
+};
+
 // out[i] = a[i] * b[i] (or b[0] when b_bcast) * R^-1 mod p
+template <int F>
 __global__ void k_field_mul(uint32_t* __restrict__ out, const uint32_t* __restrict__ a,
-                            const uint32_t* __restrict__ b, long long n, int b_bcast, int f) {
+                            const uint32_t* __restrict__ b, long long n, int b_bcast) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Fe x, y, r;
@@ -78,16 +145,17 @@ __global__ void k_field_mul(uint32_t* __restrict__ out, const uint32_t* __restri
   } else {
     load_fe(y, b, n, i);
   }
-  halo::fe_mul(r, x, y, f);
+  halo::fe_mul<F>(r, x, y);
   store_fe(out, n, i, r);
 }
 
 // One radix-2 decimation-in-time stage over rows of m lanes holding
 // blocks of 2*half: for block blk and j < half, with e at blk*2*half + j
 // and o at e + half, (e, o) <- (e + w_j*o, e - w_j*o), w_j = tw[j*tw_stride].
+template <int F>
 __global__ void k_ntt_butterfly(uint32_t* __restrict__ y, const uint32_t* __restrict__ x,
                                 const uint32_t* __restrict__ tw, long long m, long long half,
-                                long long tw_n, long long tw_stride, int f) {
+                                long long tw_n, long long tw_stride) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= m / 2) return;
   const long long blk = t / half;
@@ -98,29 +166,33 @@ __global__ void k_ntt_butterfly(uint32_t* __restrict__ y, const uint32_t* __rest
   load_fe(e, x, m, ie);
   load_fe(o, x, m, io);
   load_fe(w, tw, tw_n, j * tw_stride);
-  halo::fe_mul(p, o, w, f);
-  halo::fe_add(s, e, p, f);
-  halo::fe_sub(d, e, p, f);
+  halo::fe_mul<F>(p, o, w);
+  halo::fe_add<F>(s, e, p);
+  halo::fe_sub<F>(d, e, p);
   store_fe(y, m, ie, s);
   store_fe(y, m, io, d);
 }
 
-__global__ void k_ec_padd(uint32_t* __restrict__ out, const uint32_t* __restrict__ P,
-                          const uint32_t* __restrict__ Q, long long n, int f) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+template <int F, int G>
+__global__ void __launch_bounds__(kThreads) k_ec_padd(uint32_t* __restrict__ out,
+                                                      const uint32_t* __restrict__ P,
+                                                      const uint32_t* __restrict__ Q,
+                                                      long long n) {
+  const GroupLane<G> g(n);
+  if (g.warp_dead) return;
   Pt a, b, r;
-  load_pt(a, P, n, i);
-  load_pt(b, Q, n, i);
-  halo::pt_add(r, a, b, f);
-  store_pt(out, n, i, r);
+  load_pt(a, P, n, g.lane);
+  load_pt(b, Q, n, g.lane);
+  halo::pt_add<F, G>(r, a, b, g.role);
+  if (g.live && g.role == 0) store_pt(out, n, g.lane, r);
 }
 
 // out[i] = P[i] + (x, y), the affine operand xy[:, i] (or xy[:, 0] when
 // xy_bcast): x words in rows 0-7 and y words in rows 8-15 of the (16, n)
 // or (16, 1) operand.  The affine point must not be the identity.
+template <int F>
 __global__ void k_ec_pmadd(uint32_t* __restrict__ out, const uint32_t* __restrict__ P,
-                           const uint32_t* __restrict__ xy, long long n, int xy_bcast, int f) {
+                           const uint32_t* __restrict__ xy, long long n, int xy_bcast) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Pt a, r;
@@ -133,46 +205,112 @@ __global__ void k_ec_pmadd(uint32_t* __restrict__ out, const uint32_t* __restric
     load_fe(x, xy, n, i);
     load_fe(y, xy + 8 * n, n, i);
   }
-  halo::pt_add_affine(r, a, x, y, f);
+  halo::pt_add_affine<F, 1>(r, a, x, y, 0);
   store_pt(out, n, i, r);
 }
 
-__global__ void k_ec_pdbl(uint32_t* __restrict__ out, const uint32_t* __restrict__ P, long long n,
-                          int f) {
+template <int F>
+__global__ void k_ec_pdbl(uint32_t* __restrict__ out, const uint32_t* __restrict__ P,
+                          long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Pt a, r;
   load_pt(a, P, n, i);
-  halo::pt_double(r, a, f);
+  halo::pt_double<F>(r, a);
   store_pt(out, n, i, r);
 }
 
-// Lane f_ of F runs a prefix over R sorted points: acc starts at the
-// identity; at step t it adds the affine point xy[:, idx[t, f_]] (negated
-// when neg[t, f_] != 0) and writes acc to out[:, t, f_].  xy holds the
-// x words in rows 0-7 and the y words in rows 8-15 of npts lanes.
-__global__ void k_ec_pmadd_scan(uint32_t* __restrict__ out, const uint32_t* __restrict__ xy,
-                                const int32_t* __restrict__ idx, const uint8_t* __restrict__ neg,
-                                long long R, long long F, long long npts, int f) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= F) return;
-  const long long plane = R * F;
+__device__ __forceinline__ void load_affine(uint4 (&v)[4], const uint4* __restrict__ xy,
+                                            int32_t pi) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = __ldg(xy + 4 * (long long)pi + k);
+}
+
+// Lane l of nl runs a prefix over R sorted points: acc starts at the
+// identity; at step t it adds the affine point idx[t, l] of the
+// point-major table xy (npts rows of 16 words: x in 0-7, y in 8-15),
+// negated when neg[t, l] != 0, and writes acc to out[:, t, l].
+template <int F, int G>
+__global__ void __launch_bounds__(kThreads) k_ec_pmadd_scan(uint32_t* __restrict__ out,
+                                                            const uint4* __restrict__ xy,
+                                                            const int32_t* __restrict__ idx,
+                                                            const uint8_t* __restrict__ neg,
+                                                            long long R, long long nl) {
+  const GroupLane<G> g(nl);
+  if (g.warp_dead) return;
+  const long long plane = R * nl;
   Pt acc;
-  halo::pt_identity(acc, f);
-  Fe x, y, zero;
+  halo::pt_identity<F>(acc);
+  Fe zero;
   halo::fe_zero(zero);
+  uint4 pt[4];
+  load_affine(pt, xy, idx[g.lane]);
+  uint8_t ng = neg[g.lane];
+  int32_t pi_next = R > 1 ? idx[nl + g.lane] : 0;
   for (long long t = 0; t < R; ++t) {
-    const long long at = t * F + lane;
-    const long long pi = idx[at];
-    load_fe(x, xy, npts, pi);
-    load_fe(y, xy + 8 * npts, npts, pi);
-    if (neg[at]) halo::fe_sub(y, zero, y, f);
-    halo::pt_add_affine(acc, acc, x, y, f);
-    store_pt(out, plane, at, acc);
+    Fe x, y, yn;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      x.w[4 * k] = pt[k].x;
+      x.w[4 * k + 1] = pt[k].y;
+      x.w[4 * k + 2] = pt[k].z;
+      x.w[4 * k + 3] = pt[k].w;
+      y.w[4 * k] = pt[2 + k].x;
+      y.w[4 * k + 1] = pt[2 + k].y;
+      y.w[4 * k + 2] = pt[2 + k].z;
+      y.w[4 * k + 3] = pt[2 + k].w;
+    }
+    const bool negate = ng != 0;
+    if (t + 1 < R) {  // step t + 1's point and sign, step t + 2's index
+      load_affine(pt, xy, pi_next);
+      ng = neg[(t + 1) * nl + g.lane];
+      if (t + 2 < R) pi_next = idx[(t + 2) * nl + g.lane];
+    }
+    halo::fe_sub<F>(yn, zero, y);
+    if (negate) y = yn;
+    halo::pt_add_affine<F, G>(acc, acc, x, y, g.role);
+    if (g.live && g.role == 0) store_pt(out, plane, t * nl + g.lane, acc);
   }
 }
 
 inline unsigned grid_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
+template <int F, int G>
+void launch_ec_padd(void* out, const void* P, const void* Q, long long n, cudaStream_t s) {
+  k_ec_padd<F, G><<<grid_for(n * G), kThreads, 0, s>>>((uint32_t*)out, (const uint32_t*)P,
+                                                       (const uint32_t*)Q, n);
+}
+
+template <int F>
+void launch_ec_padd_g(void* out, const void* P, const void* Q, long long n, int g,
+                      cudaStream_t s) {
+  if (g == 4) {
+    launch_ec_padd<F, 4>(out, P, Q, n, s);
+  } else if (g == 2) {
+    launch_ec_padd<F, 2>(out, P, Q, n, s);
+  } else {
+    launch_ec_padd<F, 1>(out, P, Q, n, s);
+  }
+}
+
+template <int F, int G>
+void launch_scan(void* out, const void* xy, const void* idx, const void* neg, long long R,
+                 long long nl, cudaStream_t s) {
+  k_ec_pmadd_scan<F, G><<<grid_for(nl * G), kThreads, 0, s>>>(
+      (uint32_t*)out, (const uint4*)xy, (const int32_t*)idx, (const uint8_t*)neg, R, nl);
+}
+
+template <int F>
+void launch_scan_g(void* out, const void* xy, const void* idx, const void* neg, long long R,
+                   long long nl, int g, cudaStream_t s) {
+  if (g == 4) {
+    launch_scan<F, 4>(out, xy, idx, neg, R, nl, s);
+  } else if (g == 2) {
+    launch_scan<F, 2>(out, xy, idx, neg, R, nl, s);
+  } else {
+    launch_scan<F, 1>(out, xy, idx, neg, R, nl, s);
+  }
+}
 
 }  // namespace
 
@@ -181,8 +319,9 @@ extern "C" {
 int halo_field_mul(void* out, const void* a, const void* b, long long n, int b_bcast, int f,
                    void* stream) {
   if (n > 0) {
-    k_field_mul<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        (uint32_t*)out, (const uint32_t*)a, (const uint32_t*)b, n, b_bcast, f);
+    auto k = f ? k_field_mul<1> : k_field_mul<0>;
+    k<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>((uint32_t*)out, (const uint32_t*)a,
+                                                          (const uint32_t*)b, n, b_bcast);
   }
   return (int)cudaGetLastError();
 }
@@ -190,16 +329,21 @@ int halo_field_mul(void* out, const void* a, const void* b, long long n, int b_b
 int halo_ntt_butterfly(void* y, const void* x, const void* tw, long long m, long long half,
                        long long tw_n, long long tw_stride, int f, void* stream) {
   if (m > 0) {
-    k_ntt_butterfly<<<grid_for(m / 2), kThreads, 0, (cudaStream_t)stream>>>(
-        (uint32_t*)y, (const uint32_t*)x, (const uint32_t*)tw, m, half, tw_n, tw_stride, f);
+    auto k = f ? k_ntt_butterfly<1> : k_ntt_butterfly<0>;
+    k<<<grid_for(m / 2), kThreads, 0, (cudaStream_t)stream>>>(
+        (uint32_t*)y, (const uint32_t*)x, (const uint32_t*)tw, m, half, tw_n, tw_stride);
   }
   return (int)cudaGetLastError();
 }
 
 int halo_ec_padd(void* out, const void* P, const void* Q, long long n, int f, void* stream) {
   if (n > 0) {
-    k_ec_padd<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        (uint32_t*)out, (const uint32_t*)P, (const uint32_t*)Q, n, f);
+    const int g = group_for(n);
+    if (f) {
+      launch_ec_padd_g<1>(out, P, Q, n, g, (cudaStream_t)stream);
+    } else {
+      launch_ec_padd_g<0>(out, P, Q, n, g, (cudaStream_t)stream);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -207,37 +351,46 @@ int halo_ec_padd(void* out, const void* P, const void* Q, long long n, int f, vo
 int halo_ec_pmadd(void* out, const void* P, const void* xy, long long n, int xy_bcast, int f,
                    void* stream) {
   if (n > 0) {
-    k_ec_pmadd<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        (uint32_t*)out, (const uint32_t*)P, (const uint32_t*)xy, n, xy_bcast, f);
+    auto k = f ? k_ec_pmadd<1> : k_ec_pmadd<0>;
+    k<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>((uint32_t*)out, (const uint32_t*)P,
+                                                          (const uint32_t*)xy, n, xy_bcast);
   }
   return (int)cudaGetLastError();
 }
 
 int halo_ec_pdbl(void* out, const void* P, long long n, int f, void* stream) {
   if (n > 0) {
-    k_ec_pdbl<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>((uint32_t*)out,
-                                                                   (const uint32_t*)P, n, f);
+    auto k = f ? k_ec_pdbl<1> : k_ec_pdbl<0>;
+    k<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>((uint32_t*)out, (const uint32_t*)P, n);
   }
   return (int)cudaGetLastError();
 }
 
+// xy is the point-major (npts, 16) table (ops/mont.py passes it so).
 int halo_ec_pmadd_scan(void* out, const void* xy, const void* idx, const void* neg, long long R,
                        long long F, long long npts, int f, void* stream) {
+  (void)npts;
   if (R > 0 && F > 0) {
-    k_ec_pmadd_scan<<<grid_for(F), kThreads, 0, (cudaStream_t)stream>>>(
-        (uint32_t*)out, (const uint32_t*)xy, (const int32_t*)idx, (const uint8_t*)neg, R, F,
-        npts, f);
+    const int g = group_for(F);
+    if (f) {
+      launch_scan_g<1>(out, xy, idx, neg, R, F, g, (cudaStream_t)stream);
+    } else {
+      launch_scan_g<0>(out, xy, idx, neg, R, F, g, (cudaStream_t)stream);
+    }
   }
   return (int)cudaGetLastError();
 }
 
-// Registers per thread of each kernel as loaded, in the order field_mul,
-// ntt_butterfly, ec_padd, ec_pmadd_scan, ec_pmadd, ec_pdbl, into out[0..5].
+// Registers per thread of each kernel as loaded (Fp instances; ec_padd
+// and ec_pmadd_scan with G = 1, 2, 4), into out[0..9]: field_mul,
+// ntt_butterfly, ec_padd G1 G2 G4, ec_pmadd_scan G1 G2 G4, ec_pmadd, ec_pdbl.
 int halo_kernel_registers(int* out) {
-  const void* fns[] = {(const void*)k_field_mul, (const void*)k_ntt_butterfly,
-                       (const void*)k_ec_padd,   (const void*)k_ec_pmadd_scan,
-                       (const void*)k_ec_pmadd,  (const void*)k_ec_pdbl};
-  for (int i = 0; i < 6; ++i) {
+  const void* fns[] = {(const void*)k_field_mul<0>,        (const void*)k_ntt_butterfly<0>,
+                       (const void*)k_ec_padd<0, 1>,       (const void*)k_ec_padd<0, 2>,
+                       (const void*)k_ec_padd<0, 4>,       (const void*)k_ec_pmadd_scan<0, 1>,
+                       (const void*)k_ec_pmadd_scan<0, 2>, (const void*)k_ec_pmadd_scan<0, 4>,
+                       (const void*)k_ec_pmadd<0>,         (const void*)k_ec_pdbl<0>};
+  for (int i = 0; i < 10; ++i) {
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, fns[i]);
     if (err != cudaSuccess) return (int)err;

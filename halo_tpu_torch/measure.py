@@ -1,0 +1,118 @@
+"""What chip_smoke.py and kernel_ab.py measure the kernels with: each
+kernel's work and its least time on the card, the two timers, and the
+benchmark circuit.
+
+work(name, ...) is the one table of each kernel's bytes (each input read
+once, each output written once) and field products per launch.  bound()
+turns them into the least time on an H100 SXM: the larger of the bytes
+over 3.35 TB/s and the 32-bit multiply-adds (136 per field product, a
+dense 8-word CIOS) over 16.7 T/s (132 SMs x 64 multiply-adds per clock x
+1.98 GHz, the integer rate at the 700 W limit).
+
+host_paced_ms() times wrapper calls back to back between two CUDA events:
+for a kernel shorter than the host's issue rate of its Python wrapper
+(~0.02-0.03 ms) it reads that rate.  device_ms() replays the same calls
+captured in a CUDA graph, so no host time lies between the launches.
+
+The module imports nothing of the package at import time (torch and the
+circuit are imported inside the functions), so kernel_ab.py can load it
+into a worker that imports another checkout's halo_tpu_torch.
+"""
+
+from __future__ import annotations
+
+import random
+
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_S = 132 * 64 * 1.98e9
+FE_MUL_OPS = 136  # 32x32-bit multiply-adds in one dense 8-word CIOS product
+
+# ec_padd, ec_pmadd, ec_pdbl: (bytes, field products) per lane
+_POINT_WORK = {"ec_padd": (288, 14), "ec_pmadd": (256, 13), "ec_pdbl": (192, 9)}
+
+
+def work(name: str, lanes: int = 0, *, bcast: bool = False, half: int = 0, R: int = 0,
+         F: int = 0, npts: int = 0) -> tuple[int, int]:
+    """(bytes, field products) of one launch.  field_mul: lanes, bcast (b
+    is one element); ntt_butterfly: lanes of the (8, lanes) input, half;
+    ec_pmadd_scan: R steps x F lanes over an SRS table of npts points (a
+    point is read once however often it is gathered); the point kernels:
+    lanes."""
+    if name == "field_mul":
+        return (64 * lanes + 32 if bcast else 96 * lanes), lanes
+    if name == "ntt_butterfly":
+        return 64 * lanes + 32 * half, lanes // 2
+    if name == "ec_pmadd_scan":
+        rf = R * F
+        return 64 * min(npts, rf) + 5 * rf + 96 * rf, 13 * rf
+    per_bytes, per_products = _POINT_WORK[name]
+    return per_bytes * lanes, per_products * lanes
+
+
+def bound(nbytes: float, products: float) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time for the work."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = products * FE_MUL_OPS / IMAD_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def host_paced_ms(fn, iters: int) -> float:
+    """ms per call of `iters` calls back to back between two CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device ms per call: `iters` calls captured in a CUDA graph, replayed
+    three times."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * iters)
+
+
+def poseidon_chain(target_rows: int, seed: int):
+    """bench.py's circuit (bench.py:227-250): 12 rows per permutation; a
+    TraceBuilder with its three witnesses drawn from `seed`."""
+    from halo_tpu_torch.plonk.circuit import TRACE_CURVE, CircuitSpec, TraceBuilder
+
+    rng = random.Random(seed)
+    spec = CircuitSpec()
+    w = [spec.fp_witness() for _ in range(3)]
+    wires = tuple(w)
+    for _ in range(max(1, (target_rows - 8) // 12)):
+        for i in range(11):
+            wires = spec.poseidon(i, wires)
+        wires = spec.poseidon_finish(wires)
+    spec.output_gate(wires[0])
+    tb = TraceBuilder(spec)
+    for wi in w:
+        tb.witness(wi, rng.randrange(TRACE_CURVE[0].r))
+    return tb

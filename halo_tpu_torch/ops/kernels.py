@@ -104,13 +104,20 @@ def build() -> ctypes.CDLL:
         return lib
 
 
+# the Fp instances halo_kernel_registers reports, in its order; ec_padd and
+# ec_pmadd_scan once for each thread-group size G
+REGISTER_KEYS = ("field_mul", "ntt_butterfly", "ec_padd G1", "ec_padd G2", "ec_padd G4",
+                 "ec_pmadd_scan G1", "ec_pmadd_scan G2", "ec_pmadd_scan G4", "ec_pmadd",
+                 "ec_pdbl")
+
+
 def registers() -> dict[str, int]:
-    """Registers per thread of each kernel of the loaded library."""
-    out = (ctypes.c_int * len(NAMES))()
+    """Registers per thread of each kernel instance of the loaded library."""
+    out = (ctypes.c_int * len(REGISTER_KEYS))()
     err = build().halo_kernel_registers(out)
     if err != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {err}")
-    return dict(zip(NAMES, out))
+    return dict(zip(REGISTER_KEYS, out))
 
 
 def launch(name: str, *args) -> None:

@@ -309,13 +309,15 @@ def ec_pmadd_scan(p_mod: int, xy: torch.Tensor, idx: torch.Tensor,
     if _is_cpu(xy):
         return ec_pmadd_scan_plain(p_mod, xy, idx, neg)
     R, F = idx.shape
-    xy = xy.contiguous()
+    # the kernel gathers one point as four 16-byte loads: a point-major
+    # (npts, 16) copy of the table, made once per call
+    xy_pm = xy.t().contiguous()
+    kernels.check_cuda(xy_pm)
     idx = idx.to(torch.int32).contiguous()
     neg = neg.to(torch.uint8).contiguous()
-    kernels.check_cuda(xy)
     if idx.device != xy.device or neg.device != xy.device:
         raise ValueError("scan operands on different devices")
     out = torch.empty((3, NWORDS, R, F), dtype=torch.int32, device=xy.device)
-    kernels.launch("ec_pmadd_scan", out.data_ptr(), xy.data_ptr(), idx.data_ptr(),
+    kernels.launch("ec_pmadd_scan", out.data_ptr(), xy_pm.data_ptr(), idx.data_ptr(),
                    neg.data_ptr(), R, F, xy.shape[1], ff.field_id(p_mod))
     return out

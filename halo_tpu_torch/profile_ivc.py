@@ -1,19 +1,24 @@
 """Where an IVC step's time goes on the card: wall time, device busy time
-and the device's idle share of one warm step, with the kernels that take
-the device time.
+and the device's idle share of one warm step, the device time of each of
+the port's kernels, and the shapes each kernel was launched at.
 
     python3 -m halo_tpu_torch.profile_ivc [--steps 2]
 
-Runs IVCState.init and `--steps` steps on the first CUDA device and traces
-the last one with torch.profiler (CPU and CUDA activities).  Device busy
-time is the sum of the CUDA kernels' self time in the trace; the idle
-share is 1 - busy / wall.  Prints one JSON line; fails if the trace holds
-no device time.
+Runs IVCState.init and `--steps` steps on the first CUDA device, timing
+the untraced ones, and traces the last one with torch.profiler (CPU and
+CUDA activities).  Device busy time is the sum of the CUDA kernels' self
+time in the trace; the idle share is 1 - busy / wall.  The host side is
+summarised by the CPU ops and CUDA runtime calls of most self time.  During the traced step the kernel wrappers of
+ops/mont.py are wrapped here to count launches by shape (field_mul:
+lanes and broadcast; ntt_butterfly: lanes and half; ec_padd, ec_pmadd,
+ec_pdbl: lanes; ec_pmadd_scan: R x F); the wrappers themselves are not
+touched.  Prints one JSON line; fails if the trace holds no device time.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import time
 
@@ -23,6 +28,98 @@ from torch.profiler import ProfilerActivity, profile
 
 from . import device as devmod
 from .frontend.ivc import IVCState, _params_from_reference_fixture
+from .ops import mont
+
+KERNELS = ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan", "ec_pmadd", "ec_pdbl")
+
+
+def _shape_key(name: str, args) -> str:
+    if name == "field_mul":
+        a, b = args[1], args[2]
+        n = max(a.shape[1:].numel(), b.shape[1:].numel())
+        return f"{n}{' bcast' if min(a.shape[1:].numel(), b.shape[1:].numel()) == 1 else ''}"
+    if name == "ntt_butterfly":
+        return f"{args[1].shape[1]} half {args[3]}"
+    if name == "ec_pmadd_scan":
+        R, F = args[2].shape
+        return f"R {R} F {F}"
+    return str(args[1].shape[2:].numel())
+
+
+class _ShapeCounter:
+    """Counts each mont wrapper's calls by shape while installed."""
+
+    def __init__(self):
+        self.counts = {k: collections.Counter() for k in KERNELS}
+        self._saved = {}
+
+    def __enter__(self):
+        for name in KERNELS:
+            fn = getattr(mont, name)
+            self._saved[name] = fn
+
+            def counted(*args, _name=name, _fn=fn):
+                self.counts[_name][_shape_key(_name, args)] += 1
+                return _fn(*args)
+
+            setattr(mont, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(mont, name, fn)
+
+    def as_dict(self) -> dict:
+        return {k: dict(sorted(c.items(), key=lambda kv: -kv[1])) for k, c in self.counts.items()}
+
+
+def _port_kernel(key: str) -> str | None:
+    """The port kernel a CUDA kernel name in the trace belongs to."""
+    for name in sorted(KERNELS, key=len, reverse=True):
+        if f"k_{name}<" in key or f"k_{name}(" in key:
+            return name
+    return None
+
+
+def profile_step(dev: torch.device, steps: int) -> dict:
+    """Init, steps - 1 untraced steps, then one traced step."""
+    state = IVCState.init(_params_from_reference_fixture(), dev)
+    untraced = []
+    for _ in range(steps - 1):
+        t0 = time.perf_counter()
+        state = state.prove()
+        devmod.sync(dev)
+        untraced.append(time.perf_counter() - t0)
+    with _ShapeCounter() as shapes, \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state = state.prove()
+        devmod.sync(dev)
+        wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    kernels = sorted(((e.key, e.self_device_time_total / 1e6, e.count)
+                      for e in averages if e.device_type == DeviceType.CUDA),
+                     key=lambda k: -k[1])
+    host_ops = sorted(((e.key, e.self_cpu_time_total / 1e6, e.count)
+                       for e in averages if e.device_type == DeviceType.CPU),
+                      key=lambda k: -k[1])
+    busy = sum(k[1] for k in kernels)
+    if busy <= 0:
+        raise RuntimeError("the trace holds no device time")
+    port = {name: {"device_s": 0.0, "calls": 0} for name in KERNELS}
+    for key, dev_s, calls in kernels:
+        name = _port_kernel(key)
+        if name is not None:
+            port[name]["device_s"] += dev_s
+            port[name]["calls"] += calls
+    return {
+        "card": devmod.card_line(), "step": state.i, "untraced_steps_s": untraced, "wall_s": wall,
+        "split_s": state.timings, "device_busy_s": busy, "idle_share": 1 - busy / wall,
+        "port_kernels": port, "launch_shapes": shapes.as_dict(),
+        "top_kernels": [{"name": k[0][:80], "device_s": k[1], "calls": k[2]}
+                        for k in kernels[:8]],
+        "top_host_ops": [{"name": k[0][:80], "host_s": k[1], "calls": k[2]}
+                         for k in host_ops[:15]]}
 
 
 def main() -> int:
@@ -31,27 +128,7 @@ def main() -> int:
     args = ap.parse_args()
     if args.steps < 1:
         ap.error("--steps must be at least 1")
-    dev = devmod.cuda()
-    state = IVCState.init(_params_from_reference_fixture(), dev)
-    for _ in range(args.steps - 1):
-        state = state.prove()
-    devmod.sync(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state = state.prove()
-        devmod.sync(dev)
-        wall = time.perf_counter() - t0
-    kernels = sorted(((e.key, e.self_device_time_total / 1e6, e.count)
-                      for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                     key=lambda k: -k[1])
-    busy = sum(k[1] for k in kernels)
-    if busy <= 0:
-        raise RuntimeError("the trace holds no device time")
-    print(json.dumps({
-        "card": devmod.card_line(), "step": state.i, "wall_s": wall,
-        "split_s": state.timings, "device_busy_s": busy, "idle_share": 1 - busy / wall,
-        "top_kernels": [{"name": k[0][:80], "device_s": k[1], "calls": k[2]}
-                        for k in kernels[:8]]}))
+    print(json.dumps(profile_step(devmod.cuda(), args.steps)))
     return 0
 
 

@@ -188,6 +188,19 @@ def _check_kernel_sources_not_built_on_import():
 # ---------------- on the card: each kernel against its plain version ----------------
 
 
+def _subtract_pairs(m, count, seed):
+    """Pairs whose Montgomery product (a*b + M*m) / 2^256, M = -a*b/m mod
+    2^256, lands in [m, 2m): the field core's final subtract fires."""
+    rng = random.Random(seed)
+    minv = -pow(m, -1, R256) % R256
+    out = []
+    while len(out) < count:
+        a, b = rng.randrange(m), rng.randrange(m)
+        if (a * b + (a * b * minv % R256) * m) >> 256 >= m:
+            out.append((a, b))
+    return out
+
+
 def _check_cuda_field_mul(cuda_device, m):
     a = ff.to_rows(_vals(m, 4099, 1), cuda_device)
     b = ff.to_rows(_vals(m, 4099, 2), cuda_device)
@@ -196,6 +209,14 @@ def _check_cuda_field_mul(cuda_device, m):
     assert kernels.counts()["field_mul"] == before + 1
     assert got.equal(mont.field_mul_plain(m, a, b))
     assert mont.field_mul(m, a, b[:, :1]).equal(mont.field_mul_plain(m, a, b[:, :1]))
+    # edge values against each other, and products on the final subtract
+    edge = [0, 1, m - 1]
+    pairs = [(x, y) for x in edge for y in edge] + _subtract_pairs(m, 64, 9)
+    xr = ff.to_rows([x for x, _ in pairs], cuda_device)
+    yr = ff.to_rows([y for _, y in pairs], cuda_device)
+    got = mont.field_mul(m, xr, yr)
+    assert got.equal(mont.field_mul_plain(m, xr, yr))
+    assert ff.from_rows(got) == [x * y * pow(R256, -1, m) % m for x, y in pairs]
 
 
 def _check_cuda_ntt_butterfly(cuda_device, m):
@@ -218,6 +239,21 @@ def _check_cuda_ec_kernels(cuda_device, cfg):
     neg = (torch.rand((6, 300), generator=g) < 0.5).to(cuda_device)
     got = mont.ec_pmadd_scan(cfg.p, xy, idx, neg)
     assert got.equal(mont.ec_pmadd_scan_plain(cfg.p, xy, idx, neg))
+    # depths 16 and 64 with lane counts that leave dead lanes in the last
+    # warp, and a batched commitment's width (one thread a lane)
+    for R, F in ((16, 2049), (64, 16383), (2, 1 << 19)):
+        idx = torch.randint(0, 16, (R, F), generator=g, dtype=torch.int32).to(cuda_device)
+        neg = (torch.rand((R, F), generator=g) < 0.5).to(cuda_device)
+        got = mont.ec_pmadd_scan(cfg.p, xy, idx, neg)
+        assert got.equal(mont.ec_pmadd_scan_plain(cfg.p, xy, idx, neg)), (R, F)
+    # ec_padd at each thread-group size it picks by width on 132 SMs: the
+    # IVC step's 16,384 lanes and the narrowest two-thread width, 8,449
+    # (G = 2); a _tree_sum level's width and an odd width (G = 4)
+    for lanes in (16384, 8449, 2048, 1025):
+        reps = lanes // Pr.shape[-1] + 1
+        Pw = Pr.repeat(1, 1, reps)[..., :lanes].contiguous()
+        Qw = Qr.roll(1, -1).repeat(1, 1, reps)[..., :lanes].contiguous()
+        assert mont.ec_padd(cfg.p, Pw, Qw).equal(mont.ec_padd_plain(cfg.p, Pw, Qw)), lanes
     # ec_pmadd per lane and with one broadcast point, ec_pdbl on the edge lanes
     Qa = [a if a is not None else pts[0] for a in Q]
     Qxy = torch.cat([ff.to_rows([q[0] * R256 % cfg.p for q in Qa], cuda_device),

@@ -24,7 +24,7 @@ from halo_tpu.plonk import protocol as hprotocol
 from halo_tpu.plonk import trace as htrace
 from halo_tpu.plonk.circuit import TRACE_CURVE
 from halo_tpu.serde import Writer
-from halo_tpu_torch import convert, pcdl
+from halo_tpu_torch import convert, measure, pcdl
 from halo_tpu_torch.ops import ipa
 from halo_tpu_torch.plonk import protocol, trace
 from halo_tpu_torch.plonk.engine import Engine
@@ -154,7 +154,7 @@ def _halo_mirrors(ref_trace, m):
 
 
 def test_proof_2k8_matches_host_prover():
-    fp_data, _ = chip_smoke.poseidon_chain(256, seed=11).trace()
+    fp_data, _ = measure.poseidon_chain(256, seed=11).trace()
     cfg = TRACE_CURVE[0]
     ref_trace = htrace.Trace.new(cfg, fp_data)
     ref_c, ref_x, ref_w = ref_trace.consume()
