@@ -9,17 +9,29 @@ phase falls back to the CPU or to a plain version:
   1. device   the card's name and power limit (nvidia-smi); needs CUDA
   2. build    nvcc builds csrc/kernels.cu from this checkout
   3. srs      the Pallas SRS of the PLONK path (2^log_rows generators),
-              derived on the card by scalar_mul_rows (ec_pdbl, ec_pmadd);
-              counted and timed
+              derived on the card: one ec_smul launch (scalar_mul_rows of
+              the generator), the affine normalisation on the card
+              (to_affine_rows), one copy to the host; counted, with its
+              split (hash, scalars to the card, ec_smul, to_affine_rows,
+              copy to the host, total); S, H, 64 seeded generators and the
+              last one must equal host ec_mul of their hash scalars
   4. kernels  each kernel against its plain torch version on the card, at
               the shapes of the srs and plonk paths (2^log_rows); results
               must be equal (exact arithmetic: max_abs_err must be 0) and
-              canonical (< p).  ec_pmadd and ec_pdbl run at the SRS shape
-              (2^log_rows + 2 lanes) with identity, P = Q and P = -Q lanes;
+              canonical (< p).  ec_smul runs at the SRS shape (2^log_rows
+              + 2 lanes, one broadcast base) and at 1025 and 8449 lanes
+              with per-lane bases (four and two threads a lane), each with
+              the edge scalars 0, 1, 2, r - 1, r, r + 1, r + 2, 2^255 - 1
+              and 2^256 - 1 (bit 255 is not read).  The one-step forms
+              ec_pmadd and ec_pdbl, which no path launches, run at the SRS
+              shape (2^log_rows + 2 lanes) with identity, P = Q and P = -Q lanes;
               ec_padd on the v1 kernel's cases and field_mul on canonical
-              inputs stand for the v1 kernels.  Also held equal: field_mul
-              on 0, 1, p - 1 and on pairs whose product needs the final
-              conditional subtract (both fields), ec_padd at each
+              inputs stand for the v1 kernels; field_mul's broadcast form
+              is also timed at (8, 2^log_rows) x (8, 1), the IPA fold's
+              shape at 2^16 (the kernels line's field_mul "bcast").  Also
+              held equal: field_mul on 0, 1, p - 1 and on pairs whose
+              product needs the final conditional subtract (both fields),
+              ec_padd at each
               thread-group size it picks by width (16384 and 8449 lanes:
               two threads a lane; a _tree_sum width, 2048, and an odd
               width, 1025: four; the timed width: one), the scan at
@@ -45,10 +57,11 @@ phase falls back to the CPU or to a plain version:
 
 Each counted run (srs, plonk, ivc) sets every kernel's launch count to 0
 just before it and reads the counts just after; a kernel of that path with
-no launch fails the run.  The last three lines: the kernels JSON, the
-nvidia-smi line, and {"ok": true, "device": {...}}.  The script imports
-torch and halo_tpu_torch only, never jax or halo_tpu; the run fails if any
-module of either was loaded.
+no launch fails the run, and so does any launch of ec_pmadd or ec_pdbl,
+or a derivation that launches ec_smul other than once.  The last three
+lines: the kernels JSON, the nvidia-smi line, and {"ok": true, "device":
+{...}}.  The script imports torch and halo_tpu_torch only, never jax or
+halo_tpu; the run fails if any module of either was loaded.
 
 A kernel's ms is host-paced, as since the first port: the wrapper called
 back to back between two CUDA events, which for a kernel shorter than
@@ -82,13 +95,19 @@ REPLACES = {
     "ec_pmadd_scan": "halo_tpu/ops/pallas_mont.py:355",
     "ec_pmadd": "halo_tpu/ops/pallas_mont.py:308",
     "ec_pdbl": "halo_tpu/ops/pallas_mont.py:410",
+    "ec_smul": "halo_tpu/ops/pallas_mont.py:410",
 }
-# which counted run drives which kernels
+# ec_smul is the ladder of both point kernels and the loop around them
+REPLACES_ALSO = {"ec_smul": ["halo_tpu/ops/pallas_mont.py:308", "halo_tpu/ops/pallas_ec.py:149",
+                             "halo_tpu/ops/ecrows.py:60"]}
+# which counted run drives which kernels; the one-step forms ec_pmadd and
+# ec_pdbl run on no path
 PATH_KERNELS = {
-    "srs": ("field_mul", "ec_pdbl", "ec_pmadd"),
+    "srs": ("field_mul", "ec_smul"),
     "plonk": ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan"),
-    "ivc": tuple(REPLACES),
+    "ivc": ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan", "ec_smul"),
 }
+OFF_PATH = ("ec_pmadd", "ec_pdbl")
 IVC_LOG_ROWS = 16
 IVC_ROWS = 1 << IVC_LOG_ROWS
 
@@ -127,6 +146,9 @@ def _counted(name: str, fn):
     missing = [k for k in PATH_KERNELS[name] if launches[k] == 0]
     if missing:
         raise AssertionError(f"the {name} path launched no {missing}")
+    stray = [k for k in OFF_PATH if launches[k]]
+    if stray:
+        raise AssertionError(f"the {name} path launched {stray}")
     return out, launches
 
 
@@ -136,6 +158,7 @@ def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
     import torch
 
     from halo_tpu_torch import measure, srs
+    from halo_tpu_torch.curves import ec_mul
     from halo_tpu_torch.ops import ecrows, ff, mont, msm2
 
     rng = random.Random(seed)
@@ -184,6 +207,19 @@ def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
            measure.work("field_mul", big_n))
     if not mont.field_mul(m, a, b[:, :1]).equal(mont.field_mul_plain(m, a, b[:, :1])):
         raise AssertionError("field_mul: broadcast form differs from plain")
+    # the broadcast form (the TPU's _mulc_kernel) timed at the IPA fold's
+    # shape, (8, n) x (8, 1)
+    a1, b1 = a[:, :n].contiguous(), b[:, :1].contiguous()
+    equal("field_mul broadcast form", mont.field_mul(m, a1, b1), mont.field_mul_plain(m, a1, b1))
+    bound_ms, bound_by = measure.bound(*measure.work("field_mul", n, bcast=True))
+    out["field_mul"]["bcast"] = {
+        "shape": [8, n], "ms": measure.host_paced_ms(lambda: mont.field_mul(m, a1, b1), 20),
+        "device_ms": measure.device_ms(lambda: mont.field_mul(m, a1, b1), 20),
+        "plain_ms": measure.host_paced_ms(lambda: mont.field_mul_plain(m, a1, b1), 3),
+        "bound_ms": bound_ms, "bound_by": bound_by}
+    _phase("kernels", f"field_mul broadcast form ({cfg.name}), (8, {n}) x (8, 1): "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in out["field_mul"]["bcast"].items()
+                                  if k.endswith("ms")))
     xs = [rng.randrange(m) for _ in range(64)]
     ys = [rng.randrange(m) for _ in range(64)]
     rinv = pow(1 << 256, -1, m)
@@ -278,6 +314,29 @@ def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
            lambda: mont.ec_pdbl(p, Pd), 20, lambda: mont.ec_pdbl_plain(p, Pd),
            measure.work("ec_pdbl", lanes))
 
+    # ec_smul at the SRS derivation's shape (n + 2 lanes, the generator
+    # broadcast: four threads a lane up to 8,448 lanes, two up to 16,896,
+    # one above), then with per-lane bases at 1025 (four threads a lane)
+    # and 8449 lanes (two); the edge scalars come first in every batch
+    r = cfg.r
+    edge = [0, 1, 2, r - 1, r, r + 1, r + 2, (1 << 255) - 1, (1 << 256) - 1]
+
+    def scalars(k):
+        return ff.to_rows(edge + [rng.randrange(1 << 256) for _ in range(k - len(edge))], dev)
+
+    k_srs = scalars(lanes)
+    g = srs.pack_points(cfg, [cfg.generator[0]], [cfg.generator[1]], dev)
+    report("ec_smul", mont.ec_smul(p, g, k_srs), mont.ec_smul_plain(p, g, k_srs), p,
+           lambda: mont.ec_smul(p, g, k_srs), 3, lambda: mont.ec_smul_plain(p, g, k_srs),
+           measure.work("ec_smul", lanes, bcast=True))
+    want = [ec_mul(cfg, cfg.generator, k % (1 << 255)) for k in edge]
+    if affine_of(mont.ec_smul(p, g, k_srs[:, :len(edge)].contiguous())) != want:
+        raise AssertionError("ec_smul: an edge scalar's multiple differs from host ec_mul")
+    for width in (1025, 8449):
+        k_w, xy_w = scalars(width), xy.repeat(1, width // n + 1)[:, :width].contiguous()
+        equal(f"ec_smul at {width} lanes", mont.ec_smul(p, xy_w, k_w),
+              mont.ec_smul_plain(p, xy_w, k_w))
+
     # ec_pmadd_scan at a commitment's scan shape: 2^log_rows SRS points,
     # one poly's windows (c = 8: 32) x its lanes, R steps
     L = msm2.choose_lanes(n)
@@ -300,9 +359,32 @@ def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
         equal(f"ec_pmadd_scan R {r_} x F {f_}", mont.ec_pmadd_scan(p, xy, idx, neg),
               mont.ec_pmadd_scan_plain(p, xy, idx, neg))
     _phase("kernels", f"{cfg.name}: edge-value products, ec_padd at 16384, 8449, 2048 "
-                      f"and 1025 lanes, "
-                      f"scans at {shapes} equal to plain")
+                      f"and 1025 lanes, ec_smul at {lanes} (broadcast base), 1025 and 8449 "
+                      f"lanes with the edge scalars, scans at {shapes} equal to plain")
     return out
+
+
+def _split_line(split: dict) -> str:
+    return (f"hash {split['hash']:.3f} s, scalars to the card {split['to_card']:.3f} s, "
+            f"ec_smul {split['ec_smul']:.3f} s, to_affine_rows {split['to_affine_rows']:.3f} s, "
+            f"copy to the host {split['to_host']:.3f} s, total {split['total']:.3f} s")
+
+
+def _check_srs(pp, seed: int) -> list[int]:
+    """S, H, 64 seeded generators and the last one of a derived SRS against
+    host ec_mul of their hash scalars; returns the generators checked."""
+    from halo_tpu_torch import srs
+    from halo_tpu_torch.curves import ec_mul
+
+    cfg, n = pp.cfg, len(pp)
+    if (pp.S, pp.H) != srs.load_sh(cfg.name):
+        raise AssertionError("derived S, H differ from host ec_mul")
+    js = sorted(random.Random(seed).sample(range(n - 1), 64)) + [n - 1]
+    for j in js:
+        i = sum(divmod(j, srs.G_BLOCKS_SIZE)) + 2
+        if pp.g_affine(j) != ec_mul(cfg, cfg.generator, srs._hash_scalar(cfg, i)):
+            raise AssertionError(f"SRS generator {j} differs from host ec_mul")
+    return js
 
 
 def _subtract_pairs(m: int, rng, k: int) -> list[tuple[int, int]]:
@@ -390,10 +472,10 @@ def _ivc_path(dev, steps: int) -> dict:
 
     def run():
         for cfg in (PALLAS, VESTA):
-            t0 = time.perf_counter()
-            srs.load_srs(cfg.name, IVC_ROWS, dev)
-            _phase("ivc", f"SRS {cfg.name} 2^16 generators derived on the card in "
-                          f"{time.perf_counter() - t0:.3f} s")
+            split = {}
+            srs.load_srs(cfg.name, IVC_ROWS, dev, split)
+            _phase("ivc", f"SRS {cfg.name} 2^16 generators derived on the card: "
+                          f"{_split_line(split)}")
         state = IVCState.init(_params_from_reference_fixture(), dev)
         state.verify()
         for _ in range(steps):
@@ -426,6 +508,8 @@ def _ivc_path(dev, steps: int) -> dict:
         return state
 
     _, launches = _counted("ivc", run)
+    if launches["ec_smul"] != 2:
+        raise AssertionError(f"two SRS derivations launched ec_smul {launches['ec_smul']} times")
     _phase("ivc", f"kernel launches, SRS + {steps} steps: {json.dumps(launches)}")
     return launches
 
@@ -461,15 +545,22 @@ def main() -> int:
 
     # 2. build
     kernels.build()
-    regs = kernels.registers()
+    regs, local = kernels.registers(), kernels.local_bytes()
     _phase("build", f"nvcc build + load {kernels.BUILD_SECONDS:.2f} s ({kernels.library_path().name}); "
-                    f"registers per thread: {json.dumps(regs)}")
+                    f"registers per thread: {json.dumps(regs)}; local (spill) bytes per thread: "
+                    f"{json.dumps(local)}")
 
     # 3. the PLONK path's SRS, derived on the card
-    t0 = time.perf_counter()
-    _, srs_launches = _counted("srs", lambda: srs.load_srs(PALLAS.name, 1 << args.log_rows, dev))
-    _phase("srs", f"pallas, 2^{args.log_rows} generators derived on the card in "
-                  f"{time.perf_counter() - t0:.3f} s; kernel launches: {json.dumps(srs_launches)}")
+    n_srs = 1 << args.log_rows
+    split = {}
+    _, srs_launches = _counted("srs", lambda: srs.load_srs(PALLAS.name, n_srs, dev, split))
+    if srs_launches["ec_smul"] != 1:
+        raise AssertionError(f"the SRS derivation launched ec_smul {srs_launches['ec_smul']} times")
+    checked_at = _check_srs(srs.load_srs(PALLAS.name, n_srs, dev), args.seed)
+    _phase("srs", f"pallas, 2^{args.log_rows} generators derived on the card: "
+                  f"{_split_line(split)}; kernel launches: {json.dumps(srs_launches)}; S, H "
+                  f"and generators {checked_at[:3]} ... {checked_at[-1]} ({len(checked_at)}) "
+                  f"equal to host ec_mul")
 
     # 4. kernels vs plain at the srs and plonk paths' shapes
     checked = {"srs+plonk": _kernels_vs_plain(dev, PALLAS, args.log_rows, args.seed)}
@@ -502,12 +593,17 @@ def main() -> int:
     if loaded:
         raise AssertionError(f"the run imported jax or halo_tpu: {loaded[:5]}")
 
+    def per_instance(table, name):
+        return table[name] if name in table else \
+            {k.split()[1]: v for k, v in table.items() if k.split()[0] == name}
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": "halo_tpu_torch/csrc/kernels.cu",
-         "replaces": REPLACES[name], "launches": by_path["ivc"][name],
+         "replaces": REPLACES[name], **({"replaces_also": REPLACES_ALSO[name]}
+                                        if name in REPLACES_ALSO else {}),
+         "launches": by_path["ivc"][name],
          "launches_by_path": {path: c[name] for path, c in by_path.items()},
-         "registers": regs[name] if name in regs else
-         {k.split()[1]: v for k, v in regs.items() if k.split()[0] == name},
+         "registers": per_instance(regs, name), "local_bytes": per_instance(local, name),
          **checked["ivc pallas"][name],
          "shapes_checked": {path: c[name]["shape"] for path, c in checked.items()}}
         for name in kernels.NAMES]}))

@@ -354,9 +354,10 @@ __device__ __forceinline__ void level_mul(Fe (&r)[K], const Fe (&x)[K], const Fe
 // algorithm 9 (doubling), with the values of halo_tpu/ops/pallas_mont.py
 // (_padd_kernel :285-301, _pmadd_kernel :340-352, _pmadd_pack_kernel
 // :389-403, _pdbl_kernel :431-450).  Points are projective (X : Y : Z) in
-// Montgomery form; the identity is (0 : 1 : 0).  pt_add and pt_add_affine
-// take the thread group of level_mul: 12 and 11 products in two levels of
-// 6 and 6 (5 and 6), the b3 multiplications as fe_mul15.
+// Montgomery form; the identity is (0 : 1 : 0).  pt_add, pt_add_affine and
+// pt_double take the thread group of level_mul: 12, 11 and 8 products in
+// two levels of 6 and 6, 5 and 6, 4 and 4; the b3 multiplications as
+// fe_mul15.
 
 struct Pt {
   Fe X, Y, Z;
@@ -445,30 +446,36 @@ __device__ __forceinline__ void pt_add_affine(Pt& r, const Pt& p, const Fe& x2, 
 }
 
 // 2p, complete (the identity and points of order 2 need no branch);
-// 8 products and one fe_mul15.
-template <int F>
-__device__ __forceinline__ void pt_double(Pt& r, const Pt& p) {
-  Fe t0, t1, t2, X3, Y3, Z3;
-  fe_mul<F>(t0, p.Y, p.Y);
-  fe_add<F>(Z3, t0, t0);
-  fe_add<F>(Z3, Z3, Z3);
-  fe_add<F>(Z3, Z3, Z3);
-  fe_mul<F>(t1, p.Y, p.Z);
-  fe_mul<F>(t2, p.Z, p.Z);
-  fe_mul15<F>(t2, t2);
-  fe_mul<F>(X3, t2, Z3);
-  fe_add<F>(Y3, t0, t2);
-  fe_mul<F>(Z3, t1, Z3);
-  fe_add<F>(t1, t2, t2);
-  fe_add<F>(t2, t1, t2);
-  fe_sub<F>(t0, t0, t2);
-  fe_mul<F>(Y3, t0, Y3);
-  fe_add<F>(Y3, X3, Y3);
-  fe_mul<F>(t1, p.X, p.Y);
-  fe_mul<F>(X3, t0, t1);
-  fe_add<F>(r.X, X3, X3);
-  r.Y = Y3;
-  r.Z = Z3;
+// 8 products in two levels of 4 over the thread group of level_mul, and
+// one fe_mul15.
+template <int F, int G>
+__device__ __forceinline__ void pt_double(Pt& r, const Pt& p, int role) {
+  Fe t[4];
+  {
+    Fe a[4] = {p.Y, p.Y, p.Z, p.X};
+    Fe b[4] = {p.Y, p.Z, p.Z, p.Y};
+    level_mul<F, G, 4>(t, a, b, role);
+  }
+  // t[0] = Y^2, t[1] = YZ, t[2] = Z^2, t[3] = XY
+  Fe z8, t2, y3, u, t0;
+  fe_add<F>(z8, t[0], t[0]);
+  fe_add<F>(z8, z8, z8);
+  fe_add<F>(z8, z8, z8);
+  fe_mul15<F>(t2, t[2]);
+  fe_add<F>(y3, t[0], t2);
+  fe_add<F>(u, t2, t2);
+  fe_add<F>(u, u, t2);
+  fe_sub<F>(t0, t[0], u);
+  Fe s[4];
+  {
+    Fe a[4] = {t2, t[1], t0, t0};
+    Fe b[4] = {z8, z8, y3, t[3]};
+    level_mul<F, G, 4>(s, a, b, role);
+  }
+  // X3 = 2 t0 XY, Y3 = 15Z^2 8Y^2 + t0 y3, Z3 = 8Y^2 YZ
+  fe_add<F>(r.X, s[3], s[3]);
+  fe_add<F>(r.Y, s[0], s[2]);
+  r.Z = s[1];
 }
 
 }  // namespace halo

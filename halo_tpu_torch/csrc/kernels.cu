@@ -1,4 +1,4 @@
-// The port's six CUDA kernels (sm_90a), over the field core in field.cuh.
+// The port's seven CUDA kernels (sm_90a), over the field core in field.cuh.
 //
 // Layout: limb-major rows.  A batch of N field elements is 8 rows of N
 // words (word k of lane i at k*N + i), so neighbouring threads read
@@ -20,12 +20,16 @@
 //                  _ec_double_kernel :149)
 //   ec_pmadd_scan  _pmadd_pack_kernel :355 together with the lax.scan
 //                  around it (halo_tpu/ops/msm2.py:398-417)
+//   ec_smul        _pdbl_kernel :410 and _pmadd_kernel :308 together with
+//                  the fori_loop around them (halo_tpu/ops/ecrows.py:60-77;
+//                  the doubling is also pallas_ec.py:_ec_double_kernel :149)
 //
 // Bounds on an H100: field_mul and ntt_butterfly move 96 bytes per
 // element for one field product, so they are memory-bound near 3.35 TB/s
 // at large N; they are one thread per lane.  ec_pmadd (11 products, 256
 // bytes a lane) and ec_pdbl (8 products, 192 bytes) are one thread per
-// lane as well.
+// lane as well; they are the one-step forms of ec_smul, which no path
+// launches.
 //
 // ec_padd and ec_pmadd_scan are redesigned for latency, which bounds them
 // at most of the main path's shapes.  In an IVC step (2^16 rows) the scan
@@ -64,6 +68,30 @@
 // are __launch_bounds__(256): G = 1 ec_padd takes 128 registers, two
 // blocks an SM, so its 66,082-lane launch (259 blocks) is one wave.
 //
+// ec_smul runs a whole scalar multiplication, the SRS derivation's (the
+// generator broadcast to n + 2 = 65,538 or 16,386 lanes) and the naive
+// MSM's (2^14 lanes, a base each): one launch where the ladder used to be
+// 255 ec_pdbl and 255 ec_pmadd launches and ~1,000 torch launches around
+// them, each reading and writing the whole accumulator.  Its work is
+// operations: 255 steps of 19 products a lane (ec_pdbl's 8 and ec_pmadd's
+// 11), no bytes but the scalar and base in and the point out.  So each
+// lane keeps its accumulator in registers for all 255 steps, reads its
+// scalar words once each as the ladder reaches them (a running word, not a
+// runtime-indexed array, which would go to local memory), and each step is
+// pt_double, then pt_add_affine of the base, then a branch-free select on
+// the bit.  The group rule of ec_padd and the scan (group_for) splits
+// each step's four formula levels (4, 4, 5, 6 products) over G threads:
+// G = 1 at 65,538 lanes, 2 at 16,386, 4 up to 8,448.  G = 1 asks for two
+// blocks an SM (__launch_bounds__ min 2: 128 registers), so 65,538 lanes
+// (257 blocks) are one wave.  The base is re-read at every step by a
+// volatile non-coherent load (one address for a broadcast base), so it is
+// dead after the add's first level: against a base held in registers for
+// all 255 steps (kernel_ab.py on an NVIDIA H100 80GB HBM3 at 700 W, one
+// call; PERF.md), G = 2 went 1.95 -> 1.81 ms at 16,386 lanes and G = 4
+// 1.34 -> 1.31 ms at 1,025; G = 1 at 65,538 lanes stayed at 7.3 ms: its
+// local (spill) bytes fell from 72 to 8, and they were not what held it
+// back; the SMs' issue rate of the core's multiply-adds is.
+//
 // field_mul on canonical inputs is also the v1 canonical Montgomery
 // product of halo_tpu/ops/pallas_ff.py:_mont_mul_kernel :77.
 #include <cuda_runtime.h>
@@ -77,6 +105,7 @@ using halo::Pt;
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kScalarBits = 255;  // both Pasta scalar moduli are below 2^255
 
 // Threads per lane of ec_padd and ec_pmadd_scan: the largest G of 4, 2, 1
 // whose G * lanes threads fit one 256-thread block per SM of the current
@@ -94,6 +123,12 @@ int group_for(long long lanes) {
 __device__ __forceinline__ void load_fe(Fe& r, const uint32_t* base, long long stride, long long i) {
 #pragma unroll
   for (int k = 0; k < 8; ++k) r.w[k] = base[k * stride + i];
+}
+
+__device__ __forceinline__ uint32_t ld_nc(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
 }
 
 __device__ __forceinline__ void store_fe(uint32_t* base, long long stride, long long i, const Fe& v) {
@@ -216,8 +251,50 @@ __global__ void k_ec_pdbl(uint32_t* __restrict__ out, const uint32_t* __restrict
   if (i >= n) return;
   Pt a, r;
   load_pt(a, P, n, i);
-  halo::pt_double<F>(r, a);
+  halo::pt_double<F, 1>(r, a, 0);
   store_pt(out, n, i, r);
+}
+
+// k[:, i] * (x, y) by MSB-first double-and-add over bits 254..0 of the
+// scalar words k[:, i] (bit 255 is not read), (x, y) = xy[:, i] (or
+// xy[:, 0] when xy_bcast; never the identity).  Each step is pt_double,
+// then pt_add_affine of the base, then a word-by-word select on the bit:
+// the same exact canonical operations in the same order as ec_pdbl,
+// ec_pmadd and a lanewise select, so the output words are theirs.  No
+// branch depends on the bit: a group's threads shuffle in every step.
+template <int F, int G>
+__global__ void __launch_bounds__(kThreads, G == 1 ? 2 : 1)
+    k_ec_smul(uint32_t* __restrict__ out, const uint32_t* __restrict__ xy,
+              const uint32_t* __restrict__ k, long long n, int xy_bcast) {
+  const GroupLane<G> g(n);
+  if (g.warp_dead) return;
+  // the base is re-read at each step (a volatile load, which the compiler
+  // does not hoist): it is dead after the add's first level
+  const long long bs = xy_bcast ? 1 : n, bi = xy_bcast ? 0 : g.lane;
+  Pt acc;
+  halo::pt_identity<F>(acc);
+  // the scalar word of bit i, loaded when the ladder reaches it
+  uint32_t word = k[7 * n + g.lane];
+  for (int i = kScalarBits - 1; i >= 0; --i) {
+    const uint32_t take = 0u - ((word >> (i & 31)) & 1u);
+    if ((i & 31) == 0 && i > 0) word = k[(long long)((i >> 5) - 1) * n + g.lane];
+    Fe x, y;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      x.w[w] = ld_nc(xy + w * bs + bi);
+      y.w[w] = ld_nc(xy + (8 + w) * bs + bi);
+    }
+    Pt d, s;
+    halo::pt_double<F, G>(d, acc, g.role);
+    halo::pt_add_affine<F, G>(s, d, x, y, g.role);
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      acc.X.w[w] = (s.X.w[w] & take) | (d.X.w[w] & ~take);
+      acc.Y.w[w] = (s.Y.w[w] & take) | (d.Y.w[w] & ~take);
+      acc.Z.w[w] = (s.Z.w[w] & take) | (d.Z.w[w] & ~take);
+    }
+  }
+  if (g.live && g.role == 0) store_pt(out, n, g.lane, acc);
 }
 
 __device__ __forceinline__ void load_affine(uint4 (&v)[4], const uint4* __restrict__ xy,
@@ -312,6 +389,25 @@ void launch_scan_g(void* out, const void* xy, const void* idx, const void* neg, 
   }
 }
 
+template <int F, int G>
+void launch_smul(void* out, const void* xy, const void* k, long long n, int xy_bcast,
+                 cudaStream_t s) {
+  k_ec_smul<F, G><<<grid_for(n * G), kThreads, 0, s>>>((uint32_t*)out, (const uint32_t*)xy,
+                                                       (const uint32_t*)k, n, xy_bcast);
+}
+
+template <int F>
+void launch_smul_g(void* out, const void* xy, const void* k, long long n, int xy_bcast, int g,
+                   cudaStream_t s) {
+  if (g == 4) {
+    launch_smul<F, 4>(out, xy, k, n, xy_bcast, s);
+  } else if (g == 2) {
+    launch_smul<F, 2>(out, xy, k, n, xy_bcast, s);
+  } else {
+    launch_smul<F, 1>(out, xy, k, n, xy_bcast, s);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -381,20 +477,40 @@ int halo_ec_pmadd_scan(void* out, const void* xy, const void* idx, const void* n
   return (int)cudaGetLastError();
 }
 
-// Registers per thread of each kernel as loaded (Fp instances; ec_padd
-// and ec_pmadd_scan with G = 1, 2, 4), into out[0..9]: field_mul,
-// ntt_butterfly, ec_padd G1 G2 G4, ec_pmadd_scan G1 G2 G4, ec_pmadd, ec_pdbl.
-int halo_kernel_registers(int* out) {
+// out (3, 8, n) = k * (x, y) lane by lane; xy (16, n), or (16, 1) when
+// xy_bcast; k (8, n) scalar words.
+int halo_ec_smul(void* out, const void* xy, const void* k, long long n, int xy_bcast, int f,
+                 void* stream) {
+  if (n > 0) {
+    const int g = group_for(n);
+    if (f) {
+      launch_smul_g<1>(out, xy, k, n, xy_bcast, g, (cudaStream_t)stream);
+    } else {
+      launch_smul_g<0>(out, xy, k, n, xy_bcast, g, (cudaStream_t)stream);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// Registers and local memory (spill) bytes per thread of each kernel as
+// loaded (Fp instances; ec_padd, ec_pmadd_scan and ec_smul with G = 1, 2,
+// 4), into regs[0..12] and local[0..12]: field_mul, ntt_butterfly,
+// ec_padd G1 G2 G4, ec_pmadd_scan G1 G2 G4, ec_pmadd, ec_pdbl, ec_smul G1
+// G2 G4.
+int halo_kernel_registers(int* regs, int* local) {
   const void* fns[] = {(const void*)k_field_mul<0>,        (const void*)k_ntt_butterfly<0>,
                        (const void*)k_ec_padd<0, 1>,       (const void*)k_ec_padd<0, 2>,
                        (const void*)k_ec_padd<0, 4>,       (const void*)k_ec_pmadd_scan<0, 1>,
                        (const void*)k_ec_pmadd_scan<0, 2>, (const void*)k_ec_pmadd_scan<0, 4>,
-                       (const void*)k_ec_pmadd<0>,         (const void*)k_ec_pdbl<0>};
-  for (int i = 0; i < 10; ++i) {
+                       (const void*)k_ec_pmadd<0>,         (const void*)k_ec_pdbl<0>,
+                       (const void*)k_ec_smul<0, 1>,       (const void*)k_ec_smul<0, 2>,
+                       (const void*)k_ec_smul<0, 4>};
+  for (int i = 0; i < 13; ++i) {
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, fns[i]);
     if (err != cudaSuccess) return (int)err;
-    out[i] = attr.numRegs;
+    regs[i] = attr.numRegs;
+    local[i] = (int)attr.localSizeBytes;
   }
   return 0;
 }

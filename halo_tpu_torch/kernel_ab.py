@@ -10,12 +10,19 @@ tree, in the order given, a fresh process imports halo_tpu_torch from that
 tree (its kernels build into <tree>/build/) and measures, on the same
 seeded inputs:
 
-  - each kernel at the shapes the main paths launch it at (the 2^14 proof,
-    the IVC step at 2^16, the IPA rounds, a batched commitment), as
-    host-paced time and as device time per launch (measure.py's timers,
-    which chip_smoke.py uses too);
-  - the registers of each kernel (cudaFuncGetAttributes) and the SASS
-    instructions of each kernel (cuobjdump -sass of the built library);
+  - each kernel the tree has at the shapes the main paths launch it at
+    (the 2^14 proof, the IVC step at 2^16, the IPA rounds, a batched
+    commitment, the SRS derivations), as host-paced time and as device
+    time per launch (measure.py's timers, which chip_smoke.py uses too);
+  - the paths every tree has: ecrows.scalar_mul_rows at the SRS shapes
+    (65,538 and 16,386 lanes, one broadcast base) and at 1,025 lanes with
+    per-lane bases, host-paced and as traced device time
+    (measure.traced_device_ms: a graph cannot capture the older trees'
+    composite); srs.derive_srs wall seconds per curve at 2^16, after one
+    warm-up derivation at 2^4;
+  - the registers of each kernel (cudaFuncGetAttributes), its local
+    (spill) bytes where the tree reports them, and the SASS instructions
+    of each kernel (cuobjdump -sass of the built library);
   - one 2^14-row proof and --prove-reps warm ones (measure.poseidon_chain,
     chip_smoke.py's circuit): trace and prove seconds;
   - with --profile-steps N: this checkout's profile_ivc.py, run against
@@ -28,7 +35,8 @@ may predate them, and both import only what every tree has.
 
 Every input is made on the card from one seed.  One JSON object per tree
 goes to --out, and to stdout a table of the kernel times (median per
-tree: device / host-paced ms) and, per traced step, each kernel's device
+tree: device / host-paced ms; a kernel only where the tree has it), the
+SRS path's numbers of every run, and, per traced step, each kernel's device
 seconds beside the sum of its bounds over the step's launches
 (measure.work and measure.bound at each recorded shape).  Needs one CUDA
 card; compares only numbers taken in the same call.
@@ -65,6 +73,8 @@ def _shapes():
     for n in (65538, 16386):
         out.append((f"ec_pmadd {n} lanes", "ec_pmadd", {"n": n}))
         out.append((f"ec_pdbl {n} lanes", "ec_pdbl", {"n": n}))
+        out.append((f"ec_smul {n} lanes bcast", "ec_smul", {"n": n, "bcast": True}))
+    out.append(("ec_smul 1025 lanes", "ec_smul", {"n": 1025}))
     for R, F in ((64, 32768), (64, 8192), (64, 16384), (16, 16384), (16, 4096), (16, 2048),
                  (16, 128), (64, 524288)):
         out.append((f"ec_pmadd_scan R {R} x F {F}", "ec_pmadd_scan", {"R": R, "F": F}))
@@ -108,6 +118,8 @@ def _work(measure, name: str, key: str, npts: int) -> tuple[int, int]:
         return measure.work(name, int(w[0]), half=int(w[2]))
     if name == "ec_pmadd_scan":
         return measure.work(name, R=int(w[1]), F=int(w[3]), npts=npts)
+    if name == "ec_smul":
+        return measure.work(name, int(w[0]), bcast=len(w) > 1)
     return measure.work(name, int(w[0]))
 
 
@@ -142,8 +154,10 @@ def worker(tree: Path, profile_steps: int, prove_reps: int) -> dict:
     import torch
 
     from halo_tpu_torch import device as devmod
+    from halo_tpu_torch import srs
+    from halo_tpu_torch.curves import PALLAS
     from halo_tpu_torch.fields import FQ_MOD
-    from halo_tpu_torch.ops import kernels, mont
+    from halo_tpu_torch.ops import ecrows, kernels, mont
 
     measure = _load("measure")
     dev = devmod.cuda()
@@ -151,6 +165,8 @@ def worker(tree: Path, profile_steps: int, prove_reps: int) -> dict:
     kernels.build()
     out = {"tree": str(tree), "card": devmod.card_line(), "build_s": time.perf_counter() - t0,
            "registers": kernels.registers(), "sass": _sass_counts(kernels.library_path())}
+    if hasattr(kernels, "local_bytes"):
+        out["local_bytes"] = kernels.local_bytes()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     p = FQ_MOD  # the Pallas base field (EC kernels) and Vesta scalar field
 
@@ -164,6 +180,8 @@ def worker(tree: Path, profile_steps: int, prove_reps: int) -> dict:
     table = torch.cat((fe(npts), fe(npts)))
     times = {}
     for label, name, a in _shapes():
+        if not hasattr(mont, name):
+            continue
         if name in ("field_mul", "ntt_butterfly"):
             x = fe(a["n"])
             if name == "field_mul":
@@ -174,6 +192,11 @@ def worker(tree: Path, profile_steps: int, prove_reps: int) -> dict:
                 stride = (a["n"] // 2) // a["half"]
                 fn = lambda x=x, tw=tw, s=stride, h=a["half"]: mont.ntt_butterfly(p, x, tw, h, s)  # noqa: E731
             iters = 20
+        elif name == "ec_smul":
+            xy = torch.cat((fe(1), fe(1))) if a.get("bcast") else table[:, :a["n"]].contiguous()
+            k = fe(a["n"])
+            fn = lambda xy=xy, k=k: mont.ec_smul(p, xy, k)  # noqa: E731
+            iters = 3
         elif name == "ec_pmadd_scan":
             idx = torch.randint(0, npts, (a["R"], a["F"]), generator=gen, device=dev,
                                 dtype=torch.int32)
@@ -196,8 +219,28 @@ def worker(tree: Path, profile_steps: int, prove_reps: int) -> dict:
         torch.cuda.empty_cache()
     out["times"] = times
 
+    # the SRS path of every tree: the scalar multiplication and a whole
+    # derivation (Pallas: its base field is p)
+    g = srs.pack_points(PALLAS, [PALLAS.generator[0]], [PALLAS.generator[1]], dev)
+    paths = {}
+    for n, bcast in ((65538, True), (16386, True), (1025, False)):
+        xy = g if bcast else table[:, :n].contiguous()
+        k = fe(n)
+        fn = lambda xy=xy, k=k: ecrows.scalar_mul_rows(p, xy, k)  # noqa: E731
+        label = f"scalar_mul_rows {n} lanes{' bcast' if bcast else ''}"
+        paths[label] = {"paced_ms": measure.host_paced_ms(fn, 3),
+                        "device_ms": measure.traced_device_ms(fn, 3)}
+        torch.cuda.empty_cache()
+    for name in ("pallas", "vesta"):
+        srs.derive_srs(name, 16, dev)
+        devmod.sync(dev)
+        t0 = time.perf_counter()
+        srs.derive_srs(name, 1 << 16, dev)
+        devmod.sync(dev)
+        paths[f"derive_srs {name} 2^16"] = {"wall_s": time.perf_counter() - t0}
+    out["paths"] = paths
+
     # 2^14-row proofs of chip_smoke.py's circuit
-    from halo_tpu_torch.curves import PALLAS
     from halo_tpu_torch.plonk import protocol, trace
 
     data, _ = measure.poseidon_chain(1 << PROVE_LOG_ROWS, SEED).trace()
@@ -265,12 +308,22 @@ def main() -> int:
     by_tree = collections.defaultdict(list)
     for r in results:
         by_tree[r["tree"]].append(r)
-    for label in results[0]["times"]:
+    labels = list(dict.fromkeys(label for r in results for label in r["times"]))
+    for label in labels:
         cells = []
         for tree, rs in by_tree.items():
-            dev_ms = statistics.median(r["times"][label]["device_ms"] for r in rs)
-            paced = statistics.median(r["times"][label]["paced_ms"] for r in rs)
-            cells.append(f"{Path(tree).name or tree}: {dev_ms:.4f} / {paced:.4f}")
+            have = [r["times"][label] for r in rs if label in r["times"]]
+            if have:
+                dev_ms = statistics.median(t["device_ms"] for t in have)
+                paced = statistics.median(t["paced_ms"] for t in have)
+                cells.append(f"{Path(tree).name or tree}: {dev_ms:.4f} / {paced:.4f}")
+        print(f"{label}: " + "; ".join(cells))
+    for label in results[0].get("paths", {}):
+        cells = []
+        for tree, rs in by_tree.items():
+            vals = [r["paths"][label] for r in rs]
+            cells.append(f"{Path(tree).name or tree}: " + ", ".join(
+                f"{key} {[round(v[key], 4) for v in vals]}" for key in vals[0]))
         print(f"{label}: " + "; ".join(cells))
     summarize(results)
     return 0

@@ -13,6 +13,10 @@ host_paced_ms() times wrapper calls back to back between two CUDA events:
 for a kernel shorter than the host's issue rate of its Python wrapper
 (~0.02-0.03 ms) it reads that rate.  device_ms() replays the same calls
 captured in a CUDA graph, so no host time lies between the launches.
+traced_device_ms() sums the device time of every CUDA kernel and copy
+in a torch.profiler trace of the calls: for composites that a graph
+cannot capture (a host-to-device copy inside), such as another tree's
+scalar_mul_rows.
 
 The module imports nothing of the package at import time (torch and the
 circuit are imported inside the functions), so kernel_ab.py can load it
@@ -29,6 +33,7 @@ FE_MUL_OPS = 136  # 32x32-bit multiply-adds in one dense 8-word CIOS product
 
 # ec_padd, ec_pmadd, ec_pdbl: (bytes, field products) per lane
 _POINT_WORK = {"ec_padd": (288, 14), "ec_pmadd": (256, 13), "ec_pdbl": (192, 9)}
+SMUL_STEPS = 255  # ec_smul: one ec_pdbl and one ec_pmadd per scalar bit
 
 
 def work(name: str, lanes: int = 0, *, bcast: bool = False, half: int = 0, R: int = 0,
@@ -36,8 +41,9 @@ def work(name: str, lanes: int = 0, *, bcast: bool = False, half: int = 0, R: in
     """(bytes, field products) of one launch.  field_mul: lanes, bcast (b
     is one element); ntt_butterfly: lanes of the (8, lanes) input, half;
     ec_pmadd_scan: R steps x F lanes over an SRS table of npts points (a
-    point is read once however often it is gathered); the point kernels:
-    lanes."""
+    point is read once however often it is gathered); ec_smul: lanes,
+    bcast (one base for every lane), the products of the ec_pdbl and
+    ec_pmadd launches it replaces; the point kernels: lanes."""
     if name == "field_mul":
         return (64 * lanes + 32 if bcast else 96 * lanes), lanes
     if name == "ntt_butterfly":
@@ -45,6 +51,9 @@ def work(name: str, lanes: int = 0, *, bcast: bool = False, half: int = 0, R: in
     if name == "ec_pmadd_scan":
         rf = R * F
         return 64 * min(npts, rf) + 5 * rf + 96 * rf, 13 * rf
+    if name == "ec_smul":
+        step = _POINT_WORK["ec_pdbl"][1] + _POINT_WORK["ec_pmadd"][1]
+        return 32 * lanes + (64 if bcast else 64 * lanes) + 96 * lanes, SMUL_STEPS * step * lanes
     per_bytes, per_products = _POINT_WORK[name]
     return per_bytes * lanes, per_products * lanes
 
@@ -96,6 +105,26 @@ def device_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (3 * iters)
+
+
+def traced_device_ms(fn, iters: int) -> float:
+    """Device ms per call: the self time of the CUDA kernels and copies in
+    a torch.profiler trace of `iters` calls, after one untraced call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    if busy_us <= 0:
+        raise RuntimeError("the trace holds no device time")
+    return busy_us / 1e3 / iters
 
 
 def poseidon_chain(target_rows: int, seed: int):

@@ -1,19 +1,20 @@
 """Rows-layout EC composites over the point kernels (port of
 halo_tpu/ops/ecrows.py: identity_rows, select_rows, scalar_mul_rows,
-tree_sum_rows, msm_naive_rows).
+tree_sum_rows, msm_naive_rows), and the normalisation to affine rows.
 
 A batch of projective points of shape S is one (3, 8, *S) int32 tensor:
 X, Y, Z as canonical Montgomery word rows over the curve's base field.  An
 affine operand is (16, n): x words in rows 0-7, y words in rows 8-15.
 
-scalar_mul_rows is double-and-add, most significant bit first: each step
-doubles the accumulator (ec_pdbl) and adds the affine base where the
-scalar's bit is set (ec_pmadd, then a lanewise select), so the base stays
-affine and may be one point that every lane shares.  halo_tpu's version
-runs least significant bit first (ecrows.py:60-80); both give the same
-group element.  msm_naive_rows adds the products up with an ec_padd tree:
-an MSM that shares no code with the bucket MSM of ops/msm2.py, which
-makes it the reference the bucket MSM is checked against on the card.
+scalar_mul_rows is one ec_smul launch: double-and-add, most significant
+bit first, each step doubling the accumulator and adding the affine base
+where the scalar's bit is set, so the base stays affine and may be one
+point that every lane shares.  halo_tpu's version runs least significant
+bit first (ecrows.py:60-80); both give the same group element.
+msm_naive_rows adds the products up with an ec_padd tree: an MSM that
+shares no code with the bucket MSM of ops/msm2.py, which makes it the
+reference the bucket MSM is checked against on the card.  to_affine_rows
+divides by Z on the device (mont.batch_inv: one host inversion).
 """
 
 from __future__ import annotations
@@ -21,8 +22,6 @@ from __future__ import annotations
 import torch
 
 from . import ff, mont
-
-SCALAR_BITS = 255  # both Pasta scalar moduli are below 2^255
 
 
 def identity_rows(p_mod: int, shape, device) -> torch.Tensor:
@@ -42,14 +41,7 @@ def scalar_mul_rows(p_mod: int, xy: torch.Tensor, k: torch.Tensor) -> torch.Tens
     """k[:, i] * (x_i, y_i) for n lanes: xy (16, n) affine points, or one
     point (16, 1) for every lane; k (8, n) canonical scalar words.
     Returns (3, 8, n) projective points."""
-    n = k.shape[1]
-    kw = k.to(torch.int64) & 0xFFFFFFFF
-    acc = identity_rows(p_mod, (n,), k.device)
-    for i in range(SCALAR_BITS - 1, -1, -1):
-        acc = mont.ec_pdbl(p_mod, acc)
-        bit = ((kw[i // 32] >> (i % 32)) & 1) == 1
-        acc = select_rows(bit, mont.ec_pmadd(p_mod, acc, xy), acc)
-    return acc
+    return mont.ec_smul(p_mod, xy, k)
 
 
 def tree_sum_rows(p_mod: int, P: torch.Tensor) -> torch.Tensor:
@@ -94,3 +86,16 @@ def to_affine_ints(p_mod: int, P: torch.Tensor) -> list:
         tinv = tinv * Z[i] % p_mod
         out[i] = (X[i] * zinv % p_mod, Y[i] * zinv % p_mod)
     return out
+
+
+def to_affine_rows(p_mod: int, P: torch.Tensor) -> torch.Tensor:
+    """(3, 8, n) projective Montgomery rows -> (16, n) Montgomery affine
+    rows (x in rows 0-7, y in rows 8-15), on P's device: x = X/Z, y = Y/Z
+    by field_mul with Z's batched inverse.  Raises ValueError if a lane is
+    the identity (Z = 0), which has no affine form."""
+    zero = ff.is_zero(P[2])
+    if bool(zero.any()):
+        lane = int(zero.nonzero()[0, 0])
+        raise ValueError(f"to_affine_rows: lane {lane} is the identity")
+    zinv = mont.batch_inv(p_mod, P[2])
+    return torch.cat((mont.field_mul(p_mod, P[0], zinv), mont.field_mul(p_mod, P[1], zinv)))

@@ -5,8 +5,9 @@ interface (`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC`), bound with ctypes.  The build runs at first use, into
 build/halo_tpu_torch/ under the repository root, keyed by a hash of the
 sources, and never when a module is imported: the CPU tests import every
-module on a machine without nvcc.  `registers` asks the loaded library for
-each kernel's registers per thread (cudaFuncGetAttributes).
+module on a machine without nvcc.  `registers` and `local_bytes` ask the
+loaded library for each kernel's registers and local memory (spill) bytes
+per thread (cudaFuncGetAttributes).
 
 Each C entry returns cudaGetLastError(); `launch` raises on any non-zero
 value.  LAUNCHES counts launches per kernel: a wrapper adds one exactly
@@ -32,7 +33,8 @@ CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "field.cuh", CSRC / "kernels.cu")
 BUILD_DIR = _PKG.parent / "build" / "halo_tpu_torch"
 
-NAMES = ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan", "ec_pmadd", "ec_pdbl")
+NAMES = ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan", "ec_pmadd", "ec_pdbl",
+         "ec_smul")
 LAUNCHES: dict[str, int] = {name: 0 for name in NAMES}
 
 _vp, _ll, _int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -43,7 +45,8 @@ _SIGNATURES = {
     "halo_ec_pmadd_scan": [_vp, _vp, _vp, _vp, _ll, _ll, _ll, _int, _vp],
     "halo_ec_pmadd": [_vp, _vp, _vp, _ll, _int, _int, _vp],
     "halo_ec_pdbl": [_vp, _vp, _ll, _int, _vp],
-    "halo_kernel_registers": [_vp],
+    "halo_ec_smul": [_vp, _vp, _vp, _ll, _int, _int, _vp],
+    "halo_kernel_registers": [_vp, _vp],
 }
 
 _lib = None
@@ -104,20 +107,30 @@ def build() -> ctypes.CDLL:
         return lib
 
 
-# the Fp instances halo_kernel_registers reports, in its order; ec_padd and
-# ec_pmadd_scan once for each thread-group size G
+# the Fp instances halo_kernel_registers reports, in its order; ec_padd,
+# ec_pmadd_scan and ec_smul once for each thread-group size G
 REGISTER_KEYS = ("field_mul", "ntt_butterfly", "ec_padd G1", "ec_padd G2", "ec_padd G4",
                  "ec_pmadd_scan G1", "ec_pmadd_scan G2", "ec_pmadd_scan G4", "ec_pmadd",
-                 "ec_pdbl")
+                 "ec_pdbl", "ec_smul G1", "ec_smul G2", "ec_smul G4")
+
+
+def _resources() -> tuple[dict[str, int], dict[str, int]]:
+    regs = (ctypes.c_int * len(REGISTER_KEYS))()
+    local = (ctypes.c_int * len(REGISTER_KEYS))()
+    err = build().halo_kernel_registers(regs, local)
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {err}")
+    return dict(zip(REGISTER_KEYS, regs)), dict(zip(REGISTER_KEYS, local))
 
 
 def registers() -> dict[str, int]:
     """Registers per thread of each kernel instance of the loaded library."""
-    out = (ctypes.c_int * len(REGISTER_KEYS))()
-    err = build().halo_kernel_registers(out)
-    if err != 0:
-        raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {err}")
-    return dict(zip(REGISTER_KEYS, out))
+    return _resources()[0]
+
+
+def local_bytes() -> dict[str, int]:
+    """Local memory bytes per thread (register spills) of each instance."""
+    return _resources()[1]
 
 
 def launch(name: str, *args) -> None:

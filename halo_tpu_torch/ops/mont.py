@@ -16,10 +16,19 @@ kernel against its plain version on the card.
 |                |                          | it (halo_tpu/ops/msm2.py:398-417)               |
 | ec_pmadd       | k_ec_pmadd               | _pmadd_kernel :308 (pmadd_rows)                 |
 | ec_pdbl        | k_ec_pdbl                | _pdbl_kernel :410 (pdbl_rows)                   |
+| ec_smul        | k_ec_smul                | _pdbl_kernel :410 and _pmadd_kernel :308 with   |
+|                |                          | the fori_loop around them                       |
+|                |                          | (halo_tpu/ops/ecrows.py:60-77)                  |
 
 On canonical inputs field_mul, ec_padd and ec_pdbl also compute what the
 v1 kernels computed: halo_tpu/ops/pallas_ff.py:_mont_mul_kernel :77 and
-halo_tpu/ops/pallas_ec.py:_ec_add_kernel :110, _ec_double_kernel :149.
+halo_tpu/ops/pallas_ec.py:_ec_add_kernel :110, _ec_double_kernel :149
+(ec_smul's doubling step too).  ec_pmadd and ec_pdbl are the one-step
+forms of ec_smul's ladder; no path launches them.
+
+scan_mul and batch_inv are composites of field_mul with no kernel of
+their own: the engine's grand product and batch inverse, and the
+projective-to-affine step of ops/ecrows.py.
 
 Field values are canonical Montgomery (8, ...) int32 word rows; points
 are (3, 8, ...) projective (X, Y, Z) rows over the curve's base field.
@@ -38,6 +47,7 @@ from . import ff, kernels
 from .ff import NL, NWORDS
 
 _B = 5  # both Pasta curves: y^2 = x^3 + 5
+SCALAR_BITS = 255  # both Pasta scalar moduli are below 2^255
 
 
 def _is_cpu(t: torch.Tensor) -> bool:
@@ -321,3 +331,79 @@ def ec_pmadd_scan(p_mod: int, xy: torch.Tensor, idx: torch.Tensor,
     kernels.launch("ec_pmadd_scan", out.data_ptr(), xy_pm.data_ptr(), idx.data_ptr(),
                    neg.data_ptr(), R, F, xy.shape[1], ff.field_id(p_mod))
     return out
+
+
+# ---------------- ec_smul ---------------- #
+
+
+def ec_smul_plain(p_mod: int, xy: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """MSB-first double-and-add over ec_pdbl_plain, ec_pmadd_plain and a
+    lanewise select."""
+    n = k.shape[1]
+    kw = k.to(torch.int64) & 0xFFFFFFFF
+    acc = torch.zeros((3, NWORDS, n), dtype=torch.int32, device=k.device)
+    acc[1] = ff.mont_one(p_mod, k.device)
+    for i in range(SCALAR_BITS - 1, -1, -1):
+        acc = ec_pdbl_plain(p_mod, acc)
+        bit = ((kw[i // 32] >> (i % 32)) & 1) == 1
+        acc = torch.where(bit, ec_pmadd_plain(p_mod, acc, xy), acc)
+    return acc
+
+
+def ec_smul(p_mod: int, xy: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """k[:, i] * (x_i, y_i) for n lanes, as (3, 8, n) projective points.
+
+    xy (16, n): affine bases, x words in rows 0-7 and y words in rows 8-15
+    (Montgomery, never the identity), or (16, 1): one base for every lane.
+    k (8, n): scalar words; bits 254..0 are read, bit 255 is ignored."""
+    if k.dim() != 2 or k.shape[0] != NWORDS or xy.dim() != 2 \
+            or xy.shape[0] != 2 * NWORDS or xy.shape[1] not in (1, k.shape[1]):
+        raise ValueError(f"bad scalar-mul shapes {tuple(xy.shape)} {tuple(k.shape)}")
+    if _is_cpu(k):
+        return ec_smul_plain(p_mod, xy, k)
+    n = k.shape[1]
+    xy = xy.contiguous()
+    k = k.contiguous()
+    kernels.check_cuda(xy, k)
+    out = torch.empty((3, NWORDS, n), dtype=torch.int32, device=k.device)
+    kernels.launch("ec_smul", out.data_ptr(), xy.data_ptr(), k.data_ptr(), n,
+                   1 if xy.shape[1] == 1 and n != 1 else 0, ff.field_id(p_mod))
+    return out
+
+
+# ---------------- composites of field_mul ---------------- #
+
+
+def scan_mul(m: int, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Inclusive product scan along the lanes of (8, n) Montgomery rows:
+    log2(n) Hillis-Steele rounds of field_mul."""
+    n = x.shape[-1]
+    one = ff.mont_one(m, x.device)
+    sh = 1
+    while sh < n:
+        ones = one.expand(NWORDS, sh)
+        if reverse:
+            shifted = torch.cat((x[:, sh:], ones), -1)
+        else:
+            shifted = torch.cat((ones, x[:, :-sh]), -1)
+        x = field_mul(m, x, shifted)
+        sh *= 2
+    return x
+
+
+def batch_inv(m: int, a: torch.Tensor) -> torch.Tensor:
+    """Elementwise inverse of (8, n) Montgomery rows (inv(0) = 0):
+    Montgomery's trick with a forward and a backward product scan and one
+    host inversion of the total."""
+    one = ff.mont_one(m, a.device)
+    zero = ff.is_zero(a)
+    a_safe = torch.where(zero, one, a)
+    prefix = scan_mul(m, a_safe)
+    suffix = scan_mul(m, a_safe, reverse=True)
+    total = ff.from_rows(field_mul(m, prefix[:, -1:], ff.const_rows(1, a.device)))[0]
+    tinv = field_mul(m, ff.const_rows(pow(total, -1, m), a.device),
+                     ff.const_rows(R256 * R256 % m, a.device))
+    pre_excl = torch.cat((one, prefix[:, :-1]), -1)
+    suf_excl = torch.cat((suffix[:, 1:], one), -1)
+    out = field_mul(m, field_mul(m, pre_excl, suf_excl), tinv)
+    return torch.where(zero, torch.zeros_like(out), out)

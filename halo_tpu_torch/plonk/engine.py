@@ -6,7 +6,8 @@ NTTs run on the ntt_butterfly kernel, every product on field_mul (on CUDA
 at every size: the JAX engine's 2^15-lane threshold for its rows kernel
 was a TPU compile-memory workaround), add/sub are plain torch, the grand
 product and batch inverse are Hillis-Steele scans over field_mul with one
-host inversion, and commitments are batched SRS MSMs (ops/msm2.py).
+host inversion (mont.scan_mul, mont.batch_inv), and commitments are
+batched SRS MSMs (ops/msm2.py).
 """
 
 from __future__ import annotations
@@ -131,38 +132,12 @@ class Engine:
 
     # ---------------- sequential algebra ---------------- #
 
-    def _scan_mul(self, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-        """Inclusive product scan along the lanes of (8, n) rows:
-        log2(n) Hillis-Steele rounds of field_mul."""
-        n = x.shape[-1]
-        sh = 1
-        while sh < n:
-            ones = self._one.expand(ff.NWORDS, sh)
-            if reverse:
-                shifted = torch.cat((x[:, sh:], ones), -1)
-            else:
-                shifted = torch.cat((ones, x[:, :-sh]), -1)
-            x = self.mul(x, shifted)
-            sh *= 2
-        return x
-
     def grand_product(self, ratios: torch.Tensor) -> torch.Tensor:
         """Permutation accumulator: z[0] = 1, z[i] = z[i-1] * ratios[i]
         (ratios[0] unused; reference protocol.rs:144-155)."""
         x = torch.cat((self._one, ratios[:, 1:]), -1)
-        return self._scan_mul(x)
+        return mont.scan_mul(self.m, x)
 
     def batch_inv(self, a: torch.Tensor) -> torch.Tensor:
-        """Elementwise inverse of (8, n) rows (inv(0) = 0): Montgomery's
-        trick with a forward and a backward product scan and one host
-        inversion of the total."""
-        zero = ff.is_zero(a)
-        a_safe = torch.where(zero, self._one, a)
-        prefix = self._scan_mul(a_safe)
-        suffix = self._scan_mul(a_safe, reverse=True)
-        t_int = self.to_ints(prefix[:, -1:])[0]
-        tinv = self.to_dev([pow(t_int, -1, self.m)])
-        pre_excl = torch.cat((self._one, prefix[:, :-1]), -1)
-        suf_excl = torch.cat((suffix[:, 1:], self._one), -1)
-        out = self.mul(self.mul(pre_excl, suf_excl), tinv)
-        return torch.where(zero, torch.zeros_like(out), out)
+        """Elementwise inverse of (8, n) rows (inv(0) = 0): mont.batch_inv."""
+        return mont.batch_inv(self.m, a)

@@ -8,11 +8,12 @@ Runs IVCState.init and `--steps` steps on the first CUDA device, timing
 the untraced ones, and traces the last one with torch.profiler (CPU and
 CUDA activities).  Device busy time is the sum of the CUDA kernels' self
 time in the trace; the idle share is 1 - busy / wall.  The host side is
-summarised by the CPU ops and CUDA runtime calls of most self time.  During the traced step the kernel wrappers of
-ops/mont.py are wrapped here to count launches by shape (field_mul:
-lanes and broadcast; ntt_butterfly: lanes and half; ec_padd, ec_pmadd,
-ec_pdbl: lanes; ec_pmadd_scan: R x F); the wrappers themselves are not
-touched.  Prints one JSON line; fails if the trace holds no device time.
+summarised by the CPU ops and CUDA runtime calls of most self time.
+During the traced step the kernel wrappers of ops/mont.py are wrapped
+here to count launches by shape (field_mul: lanes and broadcast;
+ntt_butterfly: lanes and half; ec_padd, ec_pmadd, ec_pdbl: lanes;
+ec_pmadd_scan: R x F; ec_smul: lanes and broadcast); the wrappers
+themselves are not touched.  Prints one JSON line; fails if the trace holds no device time.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ from . import device as devmod
 from .frontend.ivc import IVCState, _params_from_reference_fixture
 from .ops import mont
 
-KERNELS = ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan", "ec_pmadd", "ec_pdbl")
+KERNELS = ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan", "ec_pmadd", "ec_pdbl",
+           "ec_smul")
 
 
 def _shape_key(name: str, args) -> str:
@@ -43,6 +45,9 @@ def _shape_key(name: str, args) -> str:
     if name == "ec_pmadd_scan":
         R, F = args[2].shape
         return f"R {R} F {F}"
+    if name == "ec_smul":
+        xy, k = args[1], args[2]
+        return f"{k.shape[1]}{' bcast' if xy.shape[1] == 1 else ''}"
     return str(args[1].shape[2:].numel())
 
 
@@ -55,7 +60,9 @@ class _ShapeCounter:
 
     def __enter__(self):
         for name in KERNELS:
-            fn = getattr(mont, name)
+            fn = getattr(mont, name, None)
+            if fn is None:  # an older tree, run by kernel_ab.py, has fewer kernels
+                continue
             self._saved[name] = fn
 
             def counted(*args, _name=name, _fn=fn):

@@ -5,23 +5,28 @@ crates/group/src/main.rs:55-68; halo_tpu/srs.py:132-143): generator i is
 G * (SHA3-256(i as 8 LE bytes || genesis) mod r) for the fixed curve
 generator G.  Index 0 is S, index 1 is H, and SRS point j is index
 b + k + 2 for (b, k) = divmod(j, 2^14), the reference's overlapping-block
-layout (halo_tpu/srs.py:195-214).  derive_srs computes all n + 2 scalar
-multiples as one batched scalar_mul_rows of G on the device (ec_pdbl,
-ec_pmadd), then normalises them to affine on the host with one inversion.
+layout (halo_tpu/srs.py:195-214).  derive_srs hashes the n + 2 scalars
+on the host, computes their multiples of G on the device in one ec_smul
+launch (ecrows.scalar_mul_rows, G broadcast), normalises them to affine
+Montgomery rows there (ecrows.to_affine_rows), and copies the canonical
+words to the host once for the PublicParams' u16 limb tables.
 
 srs_pack gives the device table the MSM gathers from: (16, n) int32 rows,
 x in rows 0-7 and y in rows 8-15, Montgomery form over the base field.
+It is the derivation's own table, kept on the device it was derived on.
 """
 
 from __future__ import annotations
 
 import hashlib
+import time
 from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
 import torch
 
+from . import device as devmod
 from .curves import Affine, CurveCfg, cfg_of, ec_mul
 from .fields import R256
 from .ops import ecrows, ff, mont
@@ -39,6 +44,7 @@ class PublicParams:
     D: int
     gs_x: np.ndarray  # (N, 16) u16 canonical limbs
     gs_y: np.ndarray
+    table: torch.Tensor  # (16, N) Montgomery rows, on the device that derived them
 
     def __len__(self) -> int:
         return self.gs_x.shape[0]
@@ -61,11 +67,6 @@ def _hash_scalar(cfg: CurveCfg, i: int) -> int:
     return int.from_bytes(h.digest(), "little") % cfg.r
 
 
-def _limbs16(vals: list[int]) -> np.ndarray:
-    buf = b"".join(int(v).to_bytes(32, "little") for v in vals)
-    return np.frombuffer(buf, dtype="<u2").reshape(len(vals), 16).copy()
-
-
 @lru_cache(maxsize=4)
 def load_sh(cfg_name: str) -> tuple[Affine, Affine]:
     """S and H alone (enough for succinct checks), by host scalar
@@ -74,33 +75,66 @@ def load_sh(cfg_name: str) -> tuple[Affine, Affine]:
     return tuple(ec_mul(cfg, cfg.generator, _hash_scalar(cfg, i)) for i in (0, 1))
 
 
-def derive_srs(cfg_name: str, n: int, device) -> PublicParams:
-    """S, H and the first n SRS generators, derived on `device`."""
+def derive_srs(cfg_name: str, n: int, device, split: dict | None = None) -> PublicParams:
+    """S, H and the first n SRS generators, derived on `device`.  If
+    `split` is given, it is filled with the seconds of each part (hash,
+    to_card, ec_smul, to_affine_rows, to_host, total), with the device
+    synchronised between parts."""
     assert n & (n - 1) == 0 and n <= N_MAX
     cfg = cfg_of(cfg_name)
+    device = torch.device(device)
+    times = [time.perf_counter()]
+
+    def mark():
+        if split is not None:
+            devmod.sync(device)
+        times.append(time.perf_counter())
+
     idx = [0, 1] + [sum(divmod(j, G_BLOCKS_SIZE)) + 2 for j in range(n)]
-    k = ff.to_rows([_hash_scalar(cfg, i) for i in idx], device)
+    scalars = [_hash_scalar(cfg, i) for i in idx]
+    mark()
+    k = ff.to_rows(scalars, device)
     g = pack_points(cfg, [cfg.generator[0]], [cfg.generator[1]], device)
-    pts = ecrows.to_affine_ints(cfg.p, ecrows.scalar_mul_rows(cfg.p, g, k))
-    gs = pts[2:]
-    return PublicParams(cfg=cfg, S=pts[0], H=pts[1], D=n - 1,
-                        gs_x=_limbs16([p[0] for p in gs]), gs_y=_limbs16([p[1] for p in gs]))
+    mark()
+    P = ecrows.scalar_mul_rows(cfg.p, g, k)
+    mark()
+    table = ecrows.to_affine_rows(cfg.p, P)
+    mark()
+    # canonical words: (8, 2, n + 2) (word, coordinate, point) -> host,
+    # then (2, n + 2, 16) little-endian u16 limbs
+    canon = mont.field_mul(cfg.p, table.reshape(2, ff.NWORDS, -1).transpose(0, 1),
+                           ff.const_rows(1, device))
+    words = canon.cpu().numpy().view("<u4").transpose(1, 2, 0)
+    limbs = np.ascontiguousarray(words).view("<u2")
+    mark()
+    if split is not None:
+        names = ("hash", "to_card", "ec_smul", "to_affine_rows", "to_host")
+        split.update({k_: b - a for k_, a, b in zip(names, times, times[1:])})
+        split["total"] = times[-1] - times[0]
+
+    def affine(c):
+        return tuple(int.from_bytes(limbs[i, c].tobytes(), "little") for i in (0, 1))
+
+    return PublicParams(cfg=cfg, S=affine(0), H=affine(1), D=n - 1, gs_x=limbs[0, 2:],
+                        gs_y=limbs[1, 2:], table=table[:, 2:].contiguous())
 
 
 _DERIVED: dict[str, PublicParams] = {}
 
 
-def load_srs(cfg_name: str, n: int, device) -> PublicParams:
+def load_srs(cfg_name: str, n: int, device, split: dict | None = None) -> PublicParams:
     """S, H and the first n generators.  Each curve's SRS is derived once,
     at the largest n asked for so far (the first n points of a larger SRS
-    are the same points); `device` runs the derivation."""
+    are the same points); `device` runs the derivation, which fills
+    `split` (derive_srs)."""
     assert n & (n - 1) == 0 and n <= N_MAX
     pp = _DERIVED.get(cfg_name)
     if pp is None or len(pp) < n:
-        pp = _DERIVED[cfg_name] = derive_srs(cfg_name, n, device)
+        pp = _DERIVED[cfg_name] = derive_srs(cfg_name, n, device, split)
     if len(pp) == n:
         return pp
-    return PublicParams(cfg=pp.cfg, S=pp.S, H=pp.H, D=n - 1, gs_x=pp.gs_x[:n], gs_y=pp.gs_y[:n])
+    return PublicParams(cfg=pp.cfg, S=pp.S, H=pp.H, D=n - 1, gs_x=pp.gs_x[:n], gs_y=pp.gs_y[:n],
+                        table=pp.table[:, :n])
 
 
 def pack_points(cfg: CurveCfg, xs: list[int], ys: list[int], device) -> torch.Tensor:
@@ -113,10 +147,11 @@ def pack_points(cfg: CurveCfg, xs: list[int], ys: list[int], device) -> torch.Te
 
 @lru_cache(maxsize=8)
 def srs_pack(cfg_name: str, n: int, device: torch.device) -> torch.Tensor:
-    """The first n SRS generators as a packed (16, n) device table."""
+    """The first n SRS generators as a packed (16, n) device table: the
+    derivation's Montgomery table, moved to `device` if it lies elsewhere."""
     size = 1 << max(0, (n - 1).bit_length())
-    gs = load_srs(cfg_name, max(size, 4), device).gs_ints(n)
-    return pack_points(cfg_of(cfg_name), [g[0] for g in gs], [g[1] for g in gs], device)
+    table = load_srs(cfg_name, max(size, 4), device).table
+    return table[:, :n].contiguous().to(device)
 
 
 def msm_naive(cfg: CurveCfg, scalars: list[int], device) -> Affine:

@@ -1,7 +1,8 @@
-"""The port's point kernels' plain versions (ec_pdbl, ec_pmadd) and the EC
-composites over them (scalar_mul_rows, tree_sum_rows: msm_naive_rows), and
-the SRS derivation built on them, against halo_tpu.curves, halo_tpu.srs
-and halo_tpu.native.  The kernels themselves are held against these plain
+"""The port's point kernels' plain versions (ec_pdbl, ec_pmadd, and the
+ec_smul ladder over them) and the EC composites (scalar_mul_rows,
+tree_sum_rows: msm_naive_rows; to_affine_rows), and the SRS derivation
+and packed table built on them, against halo_tpu.curves, halo_tpu.srs and
+halo_tpu.native.  The kernels themselves are held against these plain
 versions on the card by chip_smoke.py and tests/test_torch_mont.py.
 
 Tolerance: zero.  Points are compared as affine ints (projective
@@ -78,11 +79,43 @@ def _check_pdbl_and_pmadd_plain_edge_lanes(cfg):
         mont.ec_pmadd(cfg.p, Pr, _affine_rows(cfg, [a, b]))
 
 
+def _edge_scalars(cfg):
+    """0, 1, 2, r - 1, r (the P = -Q add: the identity), r + 1, r + 2 (the
+    P = Q add inside the ladder), 2^255 - 1, and 2^255 - 1 with bit 255
+    also set (not read: the same point)."""
+    r = cfg.r
+    return [0, 1, 2, r - 1, r, r + 1, r + 2, (1 << 255) - 1, (1 << 256) - 1]
+
+
+def _check_scalar_mul_broadcast_and_to_affine_rows(cfg):
+    """scalar_mul_rows (the plain ec_smul ladder on the CPU) of one
+    broadcast base on the edge scalars against ec_mul (per-lane bases take
+    them in _check_derive_srs_and_msm_naive_rows); to_affine_rows against
+    to_affine_ints on the same points, and its ValueError on an identity
+    lane."""
+    ks = _edge_scalars(cfg)
+    base = _points(cfg, 1, 9)[0]
+    S = ecrows.scalar_mul_rows(cfg.p, _affine_rows(cfg, [base]), ff.to_rows(ks, "cpu"))
+    assert S.shape == (3, 8, len(ks))
+    want = [ec_mul(cfg, base, k % (1 << 255)) for k in ks]
+    assert ecrows.to_affine_ints(cfg.p, S) == want
+    # lanes 0 and 4 are the identity; the others normalise
+    live = [i for i, q in enumerate(want) if q is not None]
+    assert live == [1, 2, 3, 5, 6, 7, 8]
+    S_live = S[:, :, live].contiguous()
+    assert ecrows.to_affine_rows(cfg.p, S_live).equal(
+        _affine_rows(cfg, ecrows.to_affine_ints(cfg.p, S_live)))
+    with pytest.raises(ValueError, match="lane 3 is the identity"):
+        ecrows.to_affine_rows(cfg.p, S[:, :, 1:])
+
+
 def _check_derive_srs_and_msm_naive_rows(cfg):
     """derive_srs at n = 2^4 (one batched scalar_mul_rows of the generator,
-    a broadcast base) gives halo_tpu.srs's S, H and generators, and
-    native.ec_batch_mul's points.  Then scalar_mul_rows of 13 of those
-    generators (per-lane bases) with the edge scalars 0, 1 and r - 1
+    a broadcast base, then to_affine_rows) gives halo_tpu.srs's S, H and
+    generators, and native.ec_batch_mul's points; srs_pack's table (the
+    derivation's own) equals pack_points of those generators, the route
+    it replaced, word for word.  Then scalar_mul_rows of 13 of those
+    generators (per-lane bases) with the edge scalars and four random ones
     against ec_mul, and tree_sum_rows of the products (13 lanes: not a
     power of two) against msm_host: msm_naive_rows, as srs.msm_naive runs
     it."""
@@ -93,6 +126,11 @@ def _check_derive_srs_and_msm_naive_rows(cfg):
     assert mine.gs_x.tobytes() == ref.gs_x.tobytes()
     assert mine.gs_y.tobytes() == ref.gs_y.tobytes()
     assert srs.load_sh(cfg.name) == (ref.S, ref.H)
+    gs = ref.gs_ints(n)
+    packed = srs.pack_points(cfg, [q[0] for q in gs], [q[1] for q in gs], "cpu")
+    assert mine.table.equal(packed)
+    assert srs.srs_pack(cfg.name, n, torch.device("cpu")).equal(packed)
+    assert srs.srs_pack(cfg.name, 5, torch.device("cpu")).equal(packed[:, :5])
     if native.available():
         ks = [srs._hash_scalar(cfg, i) for i in (0, 1, 2, 3)]
         assert native.ec_batch_mul(cfg, ks, [cfg.generator] * 4) == [
@@ -100,10 +138,10 @@ def _check_derive_srs_and_msm_naive_rows(cfg):
 
     rng = random.Random(cfg.p % 1000)
     pts = ref.gs_ints(13)
-    ks = [rng.randrange(cfg.r) for _ in range(13)]
-    ks[0], ks[1], ks[2] = 0, 1, cfg.r - 1
+    ks = _edge_scalars(cfg) + [rng.randrange(cfg.r) for _ in range(4)]
     xy = srs.pack_points(cfg, [q[0] for q in pts], [q[1] for q in pts], "cpu")
     S = ecrows.scalar_mul_rows(cfg.p, xy, ff.to_rows(ks, "cpu"))
+    ks = [k % (1 << 255) for k in ks]  # bit 255 is not read
     assert ecrows.to_affine_ints(cfg.p, S) == [ec_mul(cfg, q, k) for q, k in zip(pts, ks)]
     total = ecrows.tree_sum_rows(cfg.p, S)
     assert total.shape == (3, 8, 1)
@@ -113,4 +151,5 @@ def _check_derive_srs_and_msm_naive_rows(cfg):
 def test_ec_rows_and_derive_srs_match_jax_package():
     for cfg in CURVES:
         _check_pdbl_and_pmadd_plain_edge_lanes(cfg)
+        _check_scalar_mul_broadcast_and_to_affine_rows(cfg)
         _check_derive_srs_and_msm_naive_rows(cfg)

@@ -175,6 +175,8 @@ def _check_wrappers_take_plain_version_only_on_cpu():
         mont.ec_pmadd(FQ_MOD, P, torch.zeros((16, 4), dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         mont.ec_pdbl(FQ_MOD, P)
+    with pytest.raises(ValueError, match="unsupported device"):
+        mont.ec_smul(FQ_MOD, torch.zeros((16, 1), dtype=torch.int32, device="meta"), a)
 
 
 def _check_kernel_sources_not_built_on_import():
@@ -182,7 +184,7 @@ def _check_kernel_sources_not_built_on_import():
     # from the sources alone
     assert kernels.library_path().name.startswith("libhalo_kernels-")
     assert set(kernels.counts()) == {"field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan",
-                                     "ec_pmadd", "ec_pdbl"}
+                                     "ec_pmadd", "ec_pdbl", "ec_smul"}
 
 
 # ---------------- on the card: each kernel against its plain version ----------------
@@ -261,6 +263,24 @@ def _check_cuda_ec_kernels(cuda_device, cfg):
     for operand in (Qxy, Qxy[:, 1:2].contiguous()):
         assert mont.ec_pmadd(cfg.p, Pr, operand).equal(mont.ec_pmadd_plain(cfg.p, Pr, operand))
     assert mont.ec_pdbl(cfg.p, Pr).equal(mont.ec_pdbl_plain(cfg.p, Pr))
+    # ec_smul at a width of each thread-group size it builds (on 132 SMs:
+    # 16,897 lanes G = 1, 8,449 G = 2, 1,025 G = 4), one broadcast base and
+    # per-lane bases, the edge scalars first: 0, 1, 2, r - 1, r, r + 1,
+    # r + 2, 2^255 - 1 and 2^256 - 1 (bit 255 is not read)
+    r = cfg.r
+    edge = [0, 1, 2, r - 1, r, r + 1, r + 2, (1 << 255) - 1, (1 << 256) - 1]
+    rng = random.Random(cfg.p % 997)
+    for lanes in (16897, 8449, 1025):
+        k = ff.to_rows(edge + [rng.randrange(R256) for _ in range(lanes - len(edge))],
+                       cuda_device)
+        bases = xy.repeat(1, lanes // 16 + 1)[:, :lanes].contiguous()
+        for operand in (bases, xy[:, :1].contiguous()):
+            before = kernels.counts()["ec_smul"]
+            got = mont.ec_smul(cfg.p, operand, k)
+            assert kernels.counts()["ec_smul"] == before + 1
+            assert got.equal(mont.ec_smul_plain(cfg.p, operand, k)), lanes
+    want = [ec_mul(cfg, pts[0], kk % (1 << 255)) for kk in edge]
+    assert _affine(cfg, got[..., :len(edge)]) == want
 
 
 def test_plain_versions():

@@ -85,9 +85,9 @@ def _check_srs_rows_multi_pads_to_pow2(cfg):
 
 
 def _check_derived_srs_matches_load_srs(cfg):
-    """The port's SRS derivation (scalar_mul_rows over the plain ec_pdbl and
-    ec_pmadd) is byte-equal to halo_tpu.srs.load_srs, and the packed device
-    table to convert.srs_rows."""
+    """The port's SRS derivation (scalar_mul_rows: the plain ec_smul ladder
+    over ec_pdbl and ec_pmadd) is byte-equal to halo_tpu.srs.load_srs, and
+    the packed device table to convert.srs_rows."""
     n = 256
     mine = srs.load_srs(cfg.name, n, "cpu")
     ref = load_srs(cfg.name, n)
