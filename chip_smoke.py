@@ -18,7 +18,13 @@ phase falls back to the CPU or to a plain version:
   4. kernels  each kernel against its plain torch version on the card, at
               the shapes of the srs and plonk paths (2^log_rows); results
               must be equal (exact arithmetic: max_abs_err must be 0) and
-              canonical (< p).  ec_smul runs at the SRS shape (2^log_rows
+              canonical (< p).  field_add and field_sub run at the 8n
+              extended domain (timed), at (8, 2^19) and at (8, 2^log_rows),
+              with either operand one broadcast element, on views whose
+              lanes are contiguous at another word stride (cs[:, :h], and
+              w[:, :7] of an (8, 8, n) stack), and on the edge values 0, 1,
+              p - 1 and pairs whose sum needs the conditional subtract or
+              whose difference needs p added back (both fields).  ec_smul runs at the SRS shape (2^log_rows
               + 2 lanes, one broadcast base) and at 1025 and 8449 lanes
               with per-lane bases (four and two threads a lane), each with
               the edge scalars 0, 1, 2, r - 1, r, r + 1, r + 2, 2^255 - 1
@@ -42,14 +48,17 @@ phase falls back to the CPU or to a plain version:
               vesta}.bin byte for byte
   6. plonk    a Pallas Poseidon-chain circuit of 2^log_rows rows (bench.py's
               circuit): a warm-up proof, then the counted and timed run:
-              trace, proof, verify.  The proof must equal the warm-up's and
-              the decider MSM the naive MSM (srs.msm_naive)
+              trace, proof (with its round5.open+accumulate phase: the pair
+              open of r and r_omega and the accumulation), verify.  The
+              proof must equal the warm-up's and the decider MSM the naive
+              MSM (srs.msm_naive)
   7. ivc      IVCState.init from tests/fixtures/ivc_consts.json and
               --ivc-steps steps of the 2^16-row IVC chain (both curves'
               proofs), each verified; the SRS of both curves at 2^16 is
-              derived first, inside the counted run.  Step 1's proofs must
-              equal tests/fixtures/ivc_step1_{pallas,vesta}.bin where those
-              exist.
+              derived first, inside the counted run; each step's line
+              gives each curve's round5.open+accumulate.  Step 1's proofs
+              must equal tests/fixtures/ivc_step1_{pallas,vesta}.bin where
+              those exist.
   8. kernels  phase 4 again at the IVC path's shapes (2^16 rows: 2^16 + 2
               SRS lanes, the 8 * 2^16 extended domain, a 2^16 commitment's
               scan), over each curve's fields; the kernels line reports
@@ -58,7 +67,10 @@ phase falls back to the CPU or to a plain version:
 Each counted run (srs, plonk, ivc) sets every kernel's launch count to 0
 just before it and reads the counts just after; a kernel of that path with
 no launch fails the run, and so does any launch of ec_pmadd or ec_pdbl,
-or a derivation that launches ec_smul other than once.  The last three
+a derivation that launches ec_smul other than once, or any call of the
+plain limb code's ff.canon on a CUDA tensor (the plain field add/sub used
+to block the host on every carry round; the line also gives the operand
+copies a wrapper made because a view's lanes were not contiguous).  The last three
 lines: the kernels JSON, the nvidia-smi line, and {"ok": true, "device":
 {...}}.  The script imports torch and halo_tpu_torch only, never jax or
 halo_tpu; the run fails if any module of either was loaded.
@@ -96,7 +108,12 @@ REPLACES = {
     "ec_pmadd": "halo_tpu/ops/pallas_mont.py:308",
     "ec_pdbl": "halo_tpu/ops/pallas_mont.py:410",
     "ec_smul": "halo_tpu/ops/pallas_mont.py:410",
+    "field_add": "halo_tpu/ops/ff.py:129",
+    "field_sub": "halo_tpu/ops/ff.py:134",
 }
+# field_add and field_sub replace XLA fusions (the JAX engine's add_jit,
+# sub_jit), not Pallas kernels
+XLA_FUSIONS = ("field_add", "field_sub")
 # ec_smul is the ladder of both point kernels and the loop around them
 REPLACES_ALSO = {"ec_smul": ["halo_tpu/ops/pallas_mont.py:308", "halo_tpu/ops/pallas_ec.py:149",
                              "halo_tpu/ops/ecrows.py:60"]}
@@ -104,8 +121,10 @@ REPLACES_ALSO = {"ec_smul": ["halo_tpu/ops/pallas_mont.py:308", "halo_tpu/ops/pa
 # ec_pdbl run on no path
 PATH_KERNELS = {
     "srs": ("field_mul", "ec_smul"),
-    "plonk": ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan"),
-    "ivc": ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan", "ec_smul"),
+    "plonk": ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan", "field_add",
+              "field_sub"),
+    "ivc": ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan", "ec_smul", "field_add",
+            "field_sub"),
 }
 OFF_PATH = ("ec_pmadd", "ec_pdbl")
 IVC_LOG_ROWS = 16
@@ -137,11 +156,24 @@ def golden_builder():
 
 def _counted(name: str, fn):
     """Run fn with every launch count set to 0 first; returns (fn's result,
-    the counts after).  Fails if a kernel of the path was not launched."""
-    from halo_tpu_torch.ops import kernels
+    the counts after).  Fails if a kernel of the path was not launched, or
+    if the plain limb code (ff.canon) ran on a CUDA tensor."""
+    from halo_tpu_torch.ops import ff, kernels
+
+    canon = ff.canon
+    on_card = []
+
+    def counted_canon(m, v):
+        if v.device.type == "cuda":
+            on_card.append(tuple(v.shape))
+        return canon(m, v)
 
     kernels.reset_counts()
-    out = fn()
+    ff.canon = counted_canon
+    try:
+        out = fn()
+    finally:
+        ff.canon = canon
     launches = kernels.counts()
     missing = [k for k in PATH_KERNELS[name] if launches[k] == 0]
     if missing:
@@ -149,6 +181,11 @@ def _counted(name: str, fn):
     stray = [k for k in OFF_PATH if launches[k]]
     if stray:
         raise AssertionError(f"the {name} path launched {stray}")
+    if on_card:
+        raise AssertionError(f"the {name} path ran ff.canon on {len(on_card)} CUDA tensors "
+                             f"(first {on_card[0]})")
+    _phase(name, f"ff.canon calls on CUDA tensors: 0; operand copies before a launch: "
+                 f"{json.dumps({k: v for k, v in kernels.copies().items() if v})}")
     return out, launches
 
 
@@ -240,6 +277,31 @@ def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
                 x * y * pow(1 << 256, -1, mod) % mod for x, y in zip(xs, ys)]:
             raise AssertionError("field_mul: an edge-value product differs from x*y/R")
 
+    # field_add and field_sub, timed at the 8n extended domain (the gate
+    # constraints' width), then held at (8, 2^19) and (8, n) whole, with
+    # either operand one broadcast element, and on views read in place:
+    # cs[:, :h] against cs[:, h:2h] (the IPA fold), w[:, :7] of an (8, 8,
+    # n) stack (w_big[:, :S_POLYS]); then the edge values on both fields
+    wide = 1 << 19
+    a19, b19 = a.repeat(1, max(1, wide // big_n)), b.repeat(1, max(1, wide // big_n))
+    stack_a, stack_b = a.reshape(8, 8, n), b.reshape(8, 8, n)
+    for name, fn, plain in (("field_add", mont.field_add, mont.field_add_plain),
+                            ("field_sub", mont.field_sub, mont.field_sub_plain)):
+        report(name, fn(m, a, b), plain(m, a, b), m, lambda fn=fn: fn(m, a, b), 20,
+               lambda plain=plain: plain(m, a, b), measure.work(name, big_n))
+        for x, y in ((a19, b19), (a19, b19[:, 5:6]), (b19[:, 5:6], a19), (a[:, :n], b[:, :n]),
+                     (a[:, :n], b[:, 3:4]), (b[:, 3:4], a[:, :n]), (a[:, :n], a[:, n:2 * n]),
+                     (stack_a[:, :7], stack_b[:, 1:]), (stack_b[:, 1:4], a[:, 7:8])):
+            equal(f"{name} {tuple(x.shape)} {tuple(y.shape)}", fn(m, x, y), plain(m, x, y))
+        for mod in (cfg.r, cfg.p):
+            xs, ys = _addsub_edges(mod, rng)
+            xr, yr = ff.to_rows(xs, dev), ff.to_rows(ys, dev)
+            got = fn(mod, xr, yr)
+            equal(f"{name} edge values", got, plain(mod, xr, yr))
+            sign = 1 if name == "field_add" else -1
+            if ff.from_rows(got) != [(x + sign * y) % mod for x, y in zip(xs, ys)]:
+                raise AssertionError(f"{name}: an edge value differs from host ints")
+
     # one butterfly stage over the 8n domain (half = 2^10 of a 2^(log n) table)
     half, tw = min(1 << 10, big_n // 2), rows(m, big_n // 2)
     stride = (big_n // 2) // half
@@ -262,7 +324,7 @@ def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
 
     ident = ecrows.identity_rows(p, (1,), dev)
     A, B = proj(0, 1), proj(1, 2)
-    neg_a = torch.stack((A[0], ff.neg(p, A[1]), A[2]))
+    neg_a = torch.stack((A[0], mont.field_neg(p, A[1]), A[2]))
     P = torch.cat((ident, A, A, A, ident, proj(2, 34)), -1)
     Q = torch.cat((B, ident, A, neg_a, ident, proj(34, 66)), -1)
     S = affine_of(mont.ec_padd(p, P, Q))
@@ -291,7 +353,7 @@ def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
     reps = lanes // n + 1
     Pd = torch.cat((ident, A, A, proj(0, n).repeat(1, 1, reps)), -1)[:, :, :lanes].contiguous()
     ax, ay = xy[:8, :1], xy[8:, :1]
-    nay = ff.neg(p, ay)
+    nay = mont.field_neg(p, ay)
     Qd = torch.cat((torch.cat((ax, ay)), torch.cat((ax, ay)), torch.cat((ax, nay)),
                     xy.roll(1, -1).repeat(1, reps)), -1)[:, :lanes].contiguous()
     S = affine_of(mont.ec_pmadd(p, Pd[:, :, :8], Qd[:, :8]))
@@ -358,10 +420,24 @@ def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
         neg = (torch.rand((r_, f_), generator=gen) < 0.5).to(dev)
         equal(f"ec_pmadd_scan R {r_} x F {f_}", mont.ec_pmadd_scan(p, xy, idx, neg),
               mont.ec_pmadd_scan_plain(p, xy, idx, neg))
-    _phase("kernels", f"{cfg.name}: edge-value products, ec_padd at 16384, 8449, 2048 "
+    _phase("kernels", f"{cfg.name}: edge-value products, field_add and field_sub at (8, "
+                      f"{wide}) and (8, {n}) with either operand broadcast, on strided views "
+                      f"and on the edge values, ec_padd at 16384, 8449, 2048 "
                       f"and 1025 lanes, ec_smul at {lanes} (broadcast base), 1025 and 8449 "
                       f"lanes with the edge scalars, scans at {shapes} equal to plain")
     return out
+
+
+def _addsub_edges(m: int, rng) -> tuple[list[int], list[int]]:
+    """0, 1, m - 1 against each other, 32 pairs whose sum is at least m
+    (the conditional subtract) and 32 whose difference is negative (m
+    added back)."""
+    edge = [0, 1, m - 1]
+    hi = [rng.randrange(m // 2, m) for _ in range(32)]
+    lo = [rng.randrange(m // 2) for _ in range(32)]
+    xs = [x for x in edge for _ in edge] + hi + lo
+    ys = edge * 3 + hi[::-1] + [x + rng.randrange(1, m - x) for x in lo]
+    return xs, ys
 
 
 def _split_line(split: dict) -> str:
@@ -408,6 +484,7 @@ def _plonk_path(dev, log_rows: int, seed: int) -> dict:
     from halo_tpu_torch.curves import PALLAS
     from halo_tpu_torch.ops import msm2
     from halo_tpu_torch.plonk import protocol, trace
+    from halo_tpu_torch.profile_ivc import phase_by_curve, phase_times
 
     cfg = PALLAS
     n = 1 << log_rows
@@ -428,10 +505,12 @@ def _plonk_path(dev, log_rows: int, seed: int) -> dict:
         devmod.sync(dev)
         times["trace"] = time.perf_counter() - t0
         circuit, x, w = tr.consume()
-        t0 = time.perf_counter()
-        proof = protocol.naive_prover(cfg, circuit, x, w, dev)
-        devmod.sync(dev)
-        times["prove"] = time.perf_counter() - t0
+        with phase_times() as phases:
+            t0 = time.perf_counter()
+            proof = protocol.naive_prover(cfg, circuit, x, w, dev)
+            devmod.sync(dev)
+            times["prove"] = time.perf_counter() - t0
+        times["round5"] = phase_by_curve(phases)[cfg.name][0]
         t0 = time.perf_counter()
         protocol.verify(cfg, proof, circuit, x, dev)
         times["verify"] = time.perf_counter() - t0
@@ -454,7 +533,8 @@ def _plonk_path(dev, log_rows: int, seed: int) -> dict:
     if msm2.msm2_srs(cfg, coeffs, dev) != U or naive != U:
         raise AssertionError("decider MSM disagrees with the naive MSM")
     _phase("plonk", f"{cfg.name} Poseidon chain, 2^{log_rows} rows: trace {times['trace']:.3f} s, "
-                    f"prove {times['prove']:.3f} s, verify {times['verify']:.3f} s (warm-up "
+                    f"prove {times['prove']:.3f} s (round5.open+accumulate "
+                    f"{times['round5']:.3f} s), verify {times['verify']:.3f} s (warm-up "
                     f"trace + prove {t_warm:.2f} s); peak device memory {peak_gib:.2f} GiB; "
                     f"proof {len(warm)} bytes verified; decider MSM of {len(coeffs)} points "
                     f"equal to the naive MSM ({t_naive:.3f} s)")
@@ -467,6 +547,7 @@ def _ivc_path(dev, steps: int) -> dict:
     from halo_tpu_torch.curves import PALLAS, VESTA
     from halo_tpu_torch.frontend.ivc import IVCState, _params_from_reference_fixture
     from halo_tpu_torch.ops import kernels
+    from halo_tpu_torch.profile_ivc import phase_by_curve, phase_times
 
     gold = {c: ROOT / "tests" / "fixtures" / f"ivc_step1_{c}.bin" for c in ("pallas", "vesta")}
 
@@ -480,9 +561,11 @@ def _ivc_path(dev, steps: int) -> dict:
         state.verify()
         for _ in range(steps):
             before = kernels.counts()
-            t0 = time.perf_counter()
-            state = state.prove()
-            t_step = time.perf_counter() - t0
+            with phase_times() as phases:
+                t0 = time.perf_counter()
+                state = state.prove()
+                t_step = time.perf_counter() - t0
+            round5 = phase_by_curve(phases)
             t0 = time.perf_counter()
             state.verify()
             t_verify = time.perf_counter() - t0
@@ -499,7 +582,9 @@ def _ivc_path(dev, steps: int) -> dict:
             t = state.timings
             _phase("ivc", f"step {state.i - 1}->{state.i}: {t_step:.3f} s (trace {t['trace']:.3f} s, "
                           f"prove pallas {t['prove_pallas']:.3f} s, prove vesta "
-                          f"{t['prove_vesta']:.3f} s, verify in prove {t['verify']:.3f} s); "
+                          f"{t['prove_vesta']:.3f} s, verify in prove {t['verify']:.3f} s; "
+                          f"round5.open+accumulate pallas {round5['pallas'][0]:.3f} s, vesta "
+                          f"{round5['vesta'][0]:.3f} s); "
                           f"state.verify() {t_verify:.3f} s; proofs {sizes['pallas']} + "
                           f"{sizes['vesta']} bytes{held}")
             after = kernels.counts()
@@ -601,6 +686,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": "halo_tpu_torch/csrc/kernels.cu",
          "replaces": REPLACES[name], **({"replaces_also": REPLACES_ALSO[name]}
                                         if name in REPLACES_ALSO else {}),
+         **({"replaces_kind": "XLA fusion"} if name in XLA_FUSIONS else {}),
          "launches": by_path["ivc"][name],
          "launches_by_path": {path: c[name] for path, c in by_path.items()},
          "registers": per_instance(regs, name), "local_bytes": per_instance(local, name),

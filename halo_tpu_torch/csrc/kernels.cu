@@ -1,4 +1,4 @@
-// The port's seven CUDA kernels (sm_90a), over the field core in field.cuh.
+// The port's eight CUDA kernels (sm_90a), over the field core in field.cuh.
 //
 // Layout: limb-major rows.  A batch of N field elements is 8 rows of N
 // words (word k of lane i at k*N + i), so neighbouring threads read
@@ -23,10 +23,16 @@
 //   ec_smul        _pdbl_kernel :410 and _pmadd_kernel :308 together with
 //                  the fori_loop around them (halo_tpu/ops/ecrows.py:60-77;
 //                  the doubling is also pallas_ec.py:_ec_double_kernel :149)
+//   field_addsub   no Pallas kernel: the XLA fusions of halo_tpu/ops/ff.py
+//                  add :129 and sub :134 (the engine's add_jit/sub_jit),
+//                  two C entries, halo_field_add and halo_field_sub
 //
 // Bounds on an H100: field_mul and ntt_butterfly move 96 bytes per
 // element for one field product, so they are memory-bound near 3.35 TB/s
-// at large N; they are one thread per lane.  ec_pmadd (11 products, 256
+// at large N; they are one thread per lane.  field_addsub moves the same
+// 96 bytes for no product at all: one thread per lane, each operand read
+// in place through its word stride (a lane-contiguous view such as
+// cs[:, :h] needs no copy) or as one broadcast element.  ec_pmadd (11 products, 256
 // bytes a lane) and ec_pdbl (8 products, 192 bytes) are one thread per
 // lane as well; they are the one-step forms of ec_smul, which no path
 // launches.
@@ -181,6 +187,26 @@ __global__ void k_field_mul(uint32_t* __restrict__ out, const uint32_t* __restri
     load_fe(y, b, n, i);
   }
   halo::fe_mul<F>(r, x, y);
+  store_fe(out, n, i, r);
+}
+
+// out[i] = a[i] + b[i] (SUB: a[i] - b[i]) mod p on canonical inputs.
+// Operand x holds word k of lane i at x[k * xs + i * xl]: word stride xs,
+// lane step xl = 1, or xl = 0 for one element that every lane reads.
+template <int F, bool SUB>
+__global__ void k_field_addsub(uint32_t* __restrict__ out, const uint32_t* __restrict__ a,
+                               const uint32_t* __restrict__ b, long long n, long long as,
+                               long long al, long long bs, long long bl) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Fe x, y, r;
+  load_fe(x, a, as, i * al);
+  load_fe(y, b, bs, i * bl);
+  if (SUB) {
+    halo::fe_sub<F>(r, x, y);
+  } else {
+    halo::fe_add<F>(r, x, y);
+  }
   store_fe(out, n, i, r);
 }
 
@@ -408,6 +434,18 @@ void launch_smul_g(void* out, const void* xy, const void* k, long long n, int xy
   }
 }
 
+template <bool SUB>
+int launch_addsub(void* out, const void* a, const void* b, long long n, long long a_stride,
+                  int a_bcast, long long b_stride, int b_bcast, int f, void* stream) {
+  if (n > 0) {
+    auto k = f ? k_field_addsub<1, SUB> : k_field_addsub<0, SUB>;
+    k<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+        (uint32_t*)out, (const uint32_t*)a, (const uint32_t*)b, n, a_stride, a_bcast ? 0 : 1,
+        b_stride, b_bcast ? 0 : 1);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -420,6 +458,18 @@ int halo_field_mul(void* out, const void* a, const void* b, long long n, int b_b
                                                           (const uint32_t*)b, n, b_bcast);
   }
   return (int)cudaGetLastError();
+}
+
+// out (8, n) contiguous; a and b read at word stride a_stride, b_stride,
+// each either per lane or (x_bcast) one element for every lane.
+int halo_field_add(void* out, const void* a, const void* b, long long n, long long a_stride,
+                   int a_bcast, long long b_stride, int b_bcast, int f, void* stream) {
+  return launch_addsub<false>(out, a, b, n, a_stride, a_bcast, b_stride, b_bcast, f, stream);
+}
+
+int halo_field_sub(void* out, const void* a, const void* b, long long n, long long a_stride,
+                   int a_bcast, long long b_stride, int b_bcast, int f, void* stream) {
+  return launch_addsub<true>(out, a, b, n, a_stride, a_bcast, b_stride, b_bcast, f, stream);
 }
 
 int halo_ntt_butterfly(void* y, const void* x, const void* tw, long long m, long long half,
@@ -494,9 +544,9 @@ int halo_ec_smul(void* out, const void* xy, const void* k, long long n, int xy_b
 
 // Registers and local memory (spill) bytes per thread of each kernel as
 // loaded (Fp instances; ec_padd, ec_pmadd_scan and ec_smul with G = 1, 2,
-// 4), into regs[0..12] and local[0..12]: field_mul, ntt_butterfly,
+// 4), into regs[0..14] and local[0..14]: field_mul, ntt_butterfly,
 // ec_padd G1 G2 G4, ec_pmadd_scan G1 G2 G4, ec_pmadd, ec_pdbl, ec_smul G1
-// G2 G4.
+// G2 G4, field_add, field_sub.
 int halo_kernel_registers(int* regs, int* local) {
   const void* fns[] = {(const void*)k_field_mul<0>,        (const void*)k_ntt_butterfly<0>,
                        (const void*)k_ec_padd<0, 1>,       (const void*)k_ec_padd<0, 2>,
@@ -504,8 +554,9 @@ int halo_kernel_registers(int* regs, int* local) {
                        (const void*)k_ec_pmadd_scan<0, 2>, (const void*)k_ec_pmadd_scan<0, 4>,
                        (const void*)k_ec_pmadd<0>,         (const void*)k_ec_pdbl<0>,
                        (const void*)k_ec_smul<0, 1>,       (const void*)k_ec_smul<0, 2>,
-                       (const void*)k_ec_smul<0, 4>};
-  for (int i = 0; i < 13; ++i) {
+                       (const void*)k_ec_smul<0, 4>,       (const void*)k_field_addsub<0, false>,
+                       (const void*)k_field_addsub<0, true>};
+  for (int i = 0; i < 15; ++i) {
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, fns[i]);
     if (err != cudaSuccess) return (int)err;

@@ -14,6 +14,7 @@ seeded inputs:
     (the 2^14 proof, the IVC step at 2^16, the IPA rounds, a batched
     commitment, the SRS derivations), as host-paced time and as device
     time per launch (measure.py's timers, which chip_smoke.py uses too);
+    field_add and field_sub only where the tree has them;
   - the paths every tree has: ecrows.scalar_mul_rows at the SRS shapes
     (65,538 and 16,386 lanes, one broadcast base) and at 1,025 lanes with
     per-lane bases, host-paced and as traced device time
@@ -24,10 +25,13 @@ seeded inputs:
     (spill) bytes where the tree reports them, and the SASS instructions
     of each kernel (cuobjdump -sass of the built library);
   - one 2^14-row proof and --prove-reps warm ones (measure.poseidon_chain,
-    chip_smoke.py's circuit): trace and prove seconds;
+    chip_smoke.py's circuit): trace and prove seconds, and the proof's
+    round5.open+accumulate seconds (profile_ivc.phase_times);
   - with --profile-steps N: this checkout's profile_ivc.py, run against
     the tree's package: IVCState.init, N steps, the last one traced
-    (wall, device busy, idle share, each kernel's device time).
+    (wall, device busy, idle share, each kernel's device time, torch's
+    own kernels, the host's launch, sync, copy and any() calls, each
+    step's round5.open+accumulate per curve).
 
 A worker runs this file as a script with the tree first on sys.path, and
 loads this checkout's measure.py and profile_ivc.py by path: the trees
@@ -66,6 +70,11 @@ def _shapes():
     out = [("field_mul 8x2^19 (IVC NTT domain)", "field_mul", {"n": 1 << 19}),
            ("field_mul 8x2^17 (2^14 NTT domain)", "field_mul", {"n": 1 << 17}),
            ("field_mul 8x2^16 x 1 bcast (IPA fold)", "field_mul", {"n": 1 << 16, "bcast": True}),
+           ("field_add 8x2^19 (IVC gate constraints)", "field_add", {"n": 1 << 19}),
+           ("field_sub 8x2^19 (IVC gate constraints)", "field_sub", {"n": 1 << 19}),
+           ("field_add 8x2^17 (2^14 gate constraints)", "field_add", {"n": 1 << 17}),
+           ("field_sub 8x2^19 x 1 bcast (1 - x)", "field_sub", {"n": 1 << 19, "bcast": True}),
+           ("field_add 8x2^15 (IPA fold, first round)", "field_add", {"n": 1 << 15}),
            ("ntt_butterfly 8x2^19 half 1024", "ntt_butterfly", {"n": 1 << 19, "half": 1024}),
            ("ntt_butterfly 8x2^17 half 1024", "ntt_butterfly", {"n": 1 << 17, "half": 1024})]
     for n in (66082, 16512, 2048, 1024, 512, 64, 2):
@@ -112,7 +121,7 @@ def _load(name: str):
 def _work(measure, name: str, key: str, npts: int) -> tuple[int, int]:
     """measure.work at one of profile_ivc.py's launch-shape keys."""
     w = key.split()
-    if name == "field_mul":
+    if name in ("field_mul", "field_add", "field_sub"):
         return measure.work(name, int(w[0]), bcast=len(w) > 1)
     if name == "ntt_butterfly":
         return measure.work(name, int(w[0]), half=int(w[2]))
@@ -147,6 +156,12 @@ def summarize(results: list) -> None:
             if k["calls"]:
                 print(f"  {name}: {k['device_s']:.4f} s over {k['calls']} launches, bound "
                       f"{bounds[name]:.4f} s, lost {k['device_s'] - bounds[name]:.4f} s")
+        if "other_kernels" in pr:
+            o = pr["other_kernels"]
+            print(f"  other (torch) kernels: {o['device_s']:.4f} s over {o['calls']} launches")
+            print("  host calls: " + ", ".join(f"{k} {v['calls']} ({v['host_s']:.3f} s)"
+                                               for k, v in pr["host_calls"].items()))
+            print(f"  round5.open+accumulate s per step: {pr['round5_open_accumulate_s']}")
 
 
 def worker(tree: Path, profile_steps: int, prove_reps: int) -> dict:
@@ -182,11 +197,13 @@ def worker(tree: Path, profile_steps: int, prove_reps: int) -> dict:
     for label, name, a in _shapes():
         if not hasattr(mont, name):
             continue
-        if name in ("field_mul", "ntt_butterfly"):
+        if name in ("field_mul", "field_add", "field_sub", "ntt_butterfly"):
             x = fe(a["n"])
-            if name == "field_mul":
+            if name != "ntt_butterfly":
                 y = fe(1) if a.get("bcast") else fe(a["n"])
-                fn = lambda x=x, y=y: mont.field_mul(p, x, y)  # noqa: E731
+                if name == "field_sub" and a.get("bcast"):
+                    x, y = y, x  # the broadcast operand first, as in 1 - x
+                fn = lambda x=x, y=y, f=getattr(mont, name): f(p, x, y)  # noqa: E731
             else:
                 tw = fe(a["n"] // 2)
                 stride = (a["n"] // 2) // a["half"]
@@ -243,6 +260,7 @@ def worker(tree: Path, profile_steps: int, prove_reps: int) -> dict:
     # 2^14-row proofs of chip_smoke.py's circuit
     from halo_tpu_torch.plonk import protocol, trace
 
+    profile_ivc = _load("profile_ivc")
     data, _ = measure.poseidon_chain(1 << PROVE_LOG_ROWS, SEED).trace()
     runs = []
     for _ in range(1 + prove_reps):
@@ -251,15 +269,18 @@ def worker(tree: Path, profile_steps: int, prove_reps: int) -> dict:
         devmod.sync(dev)
         t_trace = time.perf_counter() - t0
         circuit, x, w = tr.consume()
-        t0 = time.perf_counter()
-        protocol.naive_prover(PALLAS, circuit, x, w, dev)
-        devmod.sync(dev)
-        runs.append({"trace_s": t_trace, "prove_s": time.perf_counter() - t0})
+        with profile_ivc.phase_times() as phases:
+            t0 = time.perf_counter()
+            protocol.naive_prover(PALLAS, circuit, x, w, dev)
+            devmod.sync(dev)
+            t_prove = time.perf_counter() - t0
+        runs.append({"trace_s": t_trace, "prove_s": t_prove,
+                     "round5_s": profile_ivc.phase_by_curve(phases)["pallas"][0]})
     out["prove"] = {"log_rows": PROVE_LOG_ROWS, "first": runs[0], "warm": runs[1],
                     "warm_runs": runs[1:]}
 
     if profile_steps:
-        out["profile"] = _load("profile_ivc").profile_step(dev, profile_steps)
+        out["profile"] = profile_ivc.profile_step(dev, profile_steps)
     return out
 
 
@@ -302,7 +323,8 @@ def main() -> int:
         warm = r["prove"]["warm_runs"]
         print(f"[{len(results)}] {tree}: {r['card']}; build {r['build_s']:.2f} s; warm 2^14 "
               f"trace s {[round(w['trace_s'], 3) for w in warm]}, prove s "
-              f"{[round(w['prove_s'], 3) for w in warm]}{extra}", flush=True)
+              f"{[round(w['prove_s'], 3) for w in warm]} (round5.open+accumulate s "
+              f"{[w['round5_s'] for w in warm]}){extra}", flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(results, indent=1))
     by_tree = collections.defaultdict(list)

@@ -39,13 +39,16 @@ SMUL_STEPS = 255  # ec_smul: one ec_pdbl and one ec_pmadd per scalar bit
 def work(name: str, lanes: int = 0, *, bcast: bool = False, half: int = 0, R: int = 0,
          F: int = 0, npts: int = 0) -> tuple[int, int]:
     """(bytes, field products) of one launch.  field_mul: lanes, bcast (b
-    is one element); ntt_butterfly: lanes of the (8, lanes) input, half;
+    is one element); field_add, field_sub: lanes, bcast (one operand is
+    one element), no product; ntt_butterfly: lanes of the (8, lanes) input, half;
     ec_pmadd_scan: R steps x F lanes over an SRS table of npts points (a
     point is read once however often it is gathered); ec_smul: lanes,
     bcast (one base for every lane), the products of the ec_pdbl and
     ec_pmadd launches it replaces; the point kernels: lanes."""
     if name == "field_mul":
         return (64 * lanes + 32 if bcast else 96 * lanes), lanes
+    if name in ("field_add", "field_sub"):
+        return (64 * lanes + 32 if bcast else 96 * lanes), 0
     if name == "ntt_butterfly":
         return 64 * lanes + 32 * half, lanes // 2
     if name == "ec_pmadd_scan":

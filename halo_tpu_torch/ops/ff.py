@@ -11,9 +11,10 @@ The plain arithmetic here widens words to int64 limbs (torch has no uint32
 add or shift on the CPU).  It uses 26-bit limbs rather than 16-bit ones:
 ten limbs instead of sixteen cut the work of a product by 2.5x while
 int64 still holds every column sum exactly.  These functions run on any
-device; they are the engine's add/sub (which have no kernel) and the
-plain versions that the kernel wrappers in ops/mont.py take for CPU
-tensors only.
+device; they are the plain versions that the kernel wrappers in
+ops/mont.py take for CPU tensors only (and that chip_smoke.py holds each
+kernel against on the card).  _norm_exact reads a tensor on the host at
+every carry round, so no path on the card may reach them.
 """
 
 from __future__ import annotations
@@ -141,7 +142,7 @@ def _check_sparse(m: int) -> None:
     assert limbs[_M_LO:NL - 1] == [0] * (NL - 1 - _M_LO) and limbs[-1] == 1 << _M_TOP_SHIFT
 
 
-def _align(a: torch.Tensor, b: torch.Tensor):
+def align(a: torch.Tensor, b: torch.Tensor):
     """Give (L, *Sa) and (L, *Sb) the same rank, so that their batch axes
     broadcast right-aligned behind the limb axis."""
     nd = max(a.dim(), b.dim())
@@ -179,7 +180,7 @@ def canon(m: int, v: torch.Tensor) -> torch.Tensor:
 
 def lsub(m: int, a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Tensor:
     """Lazy a - b + k*m; the caller guarantees value(b) <= k*m."""
-    a, b = _align(a, b)
+    a, b = align(a, b)
     return a - b + _kp(m, k, a.device).reshape(NL, *([1] * (a.dim() - 1)))
 
 
@@ -188,7 +189,7 @@ def lmul(m: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     limbs (broadcasting): the value is congruent to a*b/R mod m and below
     a*b/R + m; limbs come out carried to |l| <= 2^26 + 1.  Interleaved
     REDC over nine 26-bit digits and one 22-bit digit."""
-    a, b = _align(a, b)
+    a, b = align(a, b)
     shape = tuple(max(x, y) for x, y in zip(a.shape[1:], b.shape[1:]))
     a = a.expand(NL, *shape).reshape(NL, -1)
     b = b.expand(NL, *shape).reshape(NL, -1)
@@ -217,21 +218,6 @@ def lmul(m: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------- word-level plain ops (any device) ---------------- #
-
-
-def add(m: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(a + b) mod p on (8, *S) word rows; the engine's field add."""
-    la, lb = _align(words_to_limbs(a), words_to_limbs(b))
-    return limbs_to_words(canon(m, la + lb))
-
-
-def sub(m: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(a - b) mod p on (8, *S) word rows; the engine's field sub."""
-    return limbs_to_words(canon(m, lsub(m, words_to_limbs(a), words_to_limbs(b), 1)))
-
-
-def neg(m: int, a: torch.Tensor) -> torch.Tensor:
-    return sub(m, torch.zeros_like(a), a)
 
 
 def mont_mul_plain(m: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

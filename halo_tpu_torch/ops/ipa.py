@@ -1,16 +1,24 @@
-"""IPA open with the fold on tensors (port of halo_tpu/ops/ipa.py
-open_without_eval_device :221-291 and its _round_msms_jit,
-_fold_state_jit, _u_msm_jit :75-124).
+"""IPA opens with the fold on tensors (port of halo_tpu/ops/ipa.py
+open_without_eval_device :221-291 and open_pair_without_eval_device
+:294-413, with their _round_msms_jit, _fold_state_jit, _u_msm_jit :75-124
+and pair forms :128-183).
 
 The SRS points are never folded.  After k-1 rounds each folded point is
 a xi-weighted sum of original SRS points (module docstring of
 halo_tpu/ops/ipa.py), so round k's L and R are two MSMs over n/2 original
-points with derived scalars gw[idx] * c[...], run as one batched MSM
-pipeline, and U = MSM(G, gw) after the last round.  The cross dot
-products are int64 sums of the u32 words (in place of _exact_sum).  Only
-the transcript runs on the host.  The two-open lockstep variant
-(open_pair_without_eval_device) is not ported: opening twice gives the
-same bytes.
+points with derived scalars gw[idx] * c[...], and U = MSM(G, gw) after
+the last round.  The cross dot products are int64 sums of the u32 words
+(in place of _exact_sum).  Only the transcripts run on the host.
+
+Several opens of one size run in lockstep (_open_lockstep): each round
+makes one batched MSM pipeline call for the L and R of every open
+(msm2.msm_multi over the compact index supports of _round_indices; the
+reference's pair form masks full-length scalars instead, which gives the
+same group elements), one pull of every open's two dot products, and one
+copy of every open's xi and xi^-1 to the card, already in Montgomery
+form.  Each open's c, z and G-weights stay its own tensors and fold with
+their own field_add/field_mul launches.  The opens' transcripts are
+independent, so each proof is the one a single open makes.
 """
 
 from __future__ import annotations
@@ -38,10 +46,21 @@ def _round_indices(n: int, k: int, device: torch.device):
     return tuple(torch.from_numpy(x).to(device) for x in (idxL, idxL + h, r0 + h, r0))
 
 
-def open_without_eval_device(cfg: CurveCfg, p, C: Affine, d: int, z: int, v: int,
-                             device) -> EvalProof:
-    """Non-hiding IPA open; p is a host coefficient list or an (8, n')
-    Montgomery row tensor (n' <= d + 1).  Byte-identical to the host open."""
+def _coeff_rows(eng: Engine, p, n: int) -> torch.Tensor:
+    """A host coefficient list or an (8, n') Montgomery row tensor, as
+    (8, n) rows zero-padded to n."""
+    if isinstance(p, torch.Tensor):
+        cs = p.to(eng.device)
+    else:
+        cs = eng.to_dev([c % eng.m for c in p]) if len(p) else eng.zeros(0)
+    if cs.shape[-1] < n:
+        cs = torch.cat((cs, eng.zeros(n - cs.shape[-1])), -1)
+    return cs
+
+
+def _open_lockstep(cfg: CurveCfg, opens: list, d: int, device) -> list:
+    """Non-hiding IPA opens of (p, C, z, v) each, all of degree bound d,
+    folded in lockstep; byte-identical to opening each alone."""
     from .. import srs
     from ..pcdl import EvalProof
 
@@ -51,61 +70,82 @@ def open_without_eval_device(cfg: CurveCfg, p, C: Affine, d: int, z: int, v: int
     m = cfg.r
     eng = Engine(cfg, device)
     pp = srs.load_srs(cfg.name, max(4, n), device)
-    transcript = Sponge(Protocols.PCDL, cfg)
 
-    transcript.absorb_g([C])
-    transcript.absorb_fr([z, v])
-    xi_i = transcript.challenge()
-    H_prime = ec_mul(cfg, pp.H, xi_i)
-
-    if isinstance(p, torch.Tensor):
-        cs = p.to(device)
-    else:
-        cs = eng.to_dev([c % m for c in p]) if len(p) else eng.zeros(0)
-    if cs.shape[-1] < n:
-        cs = torch.cat((cs, eng.zeros(n - cs.shape[-1])), -1)
+    transcripts, xis, H_primes = [], [], []
+    for _, C, z, v in opens:
+        t = Sponge(Protocols.PCDL, cfg)
+        t.absorb_g([C])
+        t.absorb_fr([z, v])
+        xis.append(t.challenge())
+        transcripts.append(t)
+        H_primes.append(ec_mul(cfg, pp.H, xis[-1]))
+    cs = [_coeff_rows(eng, p, n) for p, _, _, _ in opens]
 
     if n == 1:  # lg(n) = 0: no fold rounds; U = G_0, c = p_0
-        return EvalProof(Ls=[], Rs=[], U=pp.g_affine(0), c=eng.to_ints(cs[:, :1])[0],
-                         C_bar=None, w_prime=None)
+        c0 = eng.to_ints(torch.cat([c[:, :1] for c in cs], -1))
+        return [EvalProof(Ls=[], Rs=[], U=pp.g_affine(0), c=c, C_bar=None, w_prime=None)
+                for c in c0]
 
     xy = srs.srs_pack(cfg.name, n, device)
-    zs = eng.powers(z, n)
-    gw = eng.one().expand(ff.NWORDS, n).contiguous()
+    zs = [eng.powers(z, n) for _, _, z, _ in opens]
+    gw = [eng.one().expand(ff.NWORDS, n).contiguous() for _ in opens]
     iota = torch.arange(n, device=device)
 
-    Ls: list[Affine] = []
-    Rs: list[Affine] = []
+    Ls: list[list[Affine]] = [[] for _ in opens]
+    Rs: list[list[Affine]] = [[] for _ in opens]
     for k in range(1, lg_n + 1):
         h = n >> k
         idxL, idxR, cspL, cspR = _round_indices(n, k, device)
-        dot_l, dot_r = eng.exact_sum(torch.stack((
-            eng.mul(cs[:, h:2 * h], zs[:, :h]), eng.mul(cs[:, :h], zs[:, h:2 * h])), 1))
-        sL = eng.from_mont(eng.mul(gw[:, idxL], cs[:, cspL]))
-        sR = eng.from_mont(eng.mul(gw[:, idxR], cs[:, cspR]))
-        Lpt, Rpt = msm2.msm_multi(cfg, xy, torch.stack((sL, sR), 1),
-                                  pidx=torch.stack((idxL, idxR)))
-        L = ec_add(cfg, Lpt, ec_mul(cfg, H_prime, dot_l))
-        R = ec_add(cfg, Rpt, ec_mul(cfg, H_prime, dot_r))
-        Ls.append(L)
-        Rs.append(R)
+        # every open's two cross dots in one pull, and its L and R scalars
+        # in one batched MSM: (dot_l, dot_r) and (L, R) per open, in order
+        dots = eng.exact_sum(torch.stack([
+            eng.mul(x, y) for c, z in zip(cs, zs)
+            for x, y in ((c[:, h:2 * h], z[:, :h]), (c[:, :h], z[:, h:2 * h]))], 1))
+        K = eng.from_mont(eng.mul(
+            torch.stack([g[:, i] for g in gw for i in (idxL, idxR)], 1),
+            torch.stack([c[:, i] for c in cs for i in (cspL, cspR)], 1)))
+        pts = msm2.msm_multi(cfg, xy, K, pidx=torch.stack([idxL, idxR] * len(opens)))
 
-        transcript.absorb_fr([xi_i])
-        transcript.absorb_g([L, R])
-        xi_next = transcript.challenge()
-        xi_i = xi_next
+        for o, t in enumerate(transcripts):
+            L = ec_add(cfg, pts[2 * o], ec_mul(cfg, H_primes[o], dots[2 * o]))
+            R = ec_add(cfg, pts[2 * o + 1], ec_mul(cfg, H_primes[o], dots[2 * o + 1]))
+            Ls[o].append(L)
+            Rs[o].append(R)
+            t.absorb_fr([xis[o]])
+            t.absorb_g([L, R])
+            xis[o] = t.challenge()
 
         # fold c and z at the active prefix; fold xi into the G weights of
         # the points with bit_k set (lanes with (i // h) odd)
-        xi_dev = eng.to_dev([xi_next])
-        xi_inv_dev = eng.to_dev([inv(xi_next, m)])
-        cs = torch.cat((eng.add(cs[:, :h], eng.mul(cs[:, h:2 * h], xi_inv_dev)),
-                        cs[:, h:]), -1)
-        zs = torch.cat((eng.add(zs[:, :h], eng.mul(zs[:, h:2 * h], xi_dev)),
-                        zs[:, h:]), -1)
+        consts = eng.consts([v for xi in xis for v in (xi, inv(xi, m))])
         bit = ((iota // h) & 1) == 1
-        gw = torch.where(bit, eng.mul(gw, xi_dev), gw)
+        for o in range(len(opens)):
+            xi_dev, xi_inv_dev = consts[2 * o], consts[2 * o + 1]
+            cs[o] = torch.cat((eng.add(cs[o][:, :h], eng.mul(cs[o][:, h:2 * h], xi_inv_dev)),
+                               cs[o][:, h:]), -1)
+            zs[o] = torch.cat((eng.add(zs[o][:, :h], eng.mul(zs[o][:, h:2 * h], xi_dev)),
+                               zs[o][:, h:]), -1)
+            gw[o] = torch.where(bit, eng.mul(gw[o], xi_dev), gw[o])
 
-    U = msm2.msm_multi(cfg, xy, eng.from_mont(gw)[:, None])[0]
-    c_final = eng.to_ints(cs[:, :1])[0]
-    return EvalProof(Ls=Ls, Rs=Rs, U=U, c=c_final, C_bar=None, w_prime=None)
+    Us = msm2.msm_multi(cfg, xy, eng.from_mont(torch.stack(gw, 1)))
+    c_final = eng.to_ints(torch.cat([c[:, :1] for c in cs], -1))
+    return [EvalProof(Ls=Ls[o], Rs=Rs[o], U=Us[o], c=c_final[o], C_bar=None, w_prime=None)
+            for o in range(len(opens))]
+
+
+def open_without_eval_device(cfg: CurveCfg, p, C: Affine, d: int, z: int, v: int,
+                             device) -> EvalProof:
+    """Non-hiding IPA open; p is a host coefficient list or an (8, n')
+    Montgomery row tensor (n' <= d + 1).  Byte-identical to the host open."""
+    return _open_lockstep(cfg, [(p, C, z, v)], d, device)[0]
+
+
+def open_pair_without_eval_device(cfg: CurveCfg, opens: list, d: int, device) -> list:
+    """Two non-hiding IPA opens in lockstep (the PLONK prover's round 5:
+    r at xi and r_omega at xi * omega).  opens: [(p, C, z, v), (p, C, z,
+    v)], each p a host coefficient list or an (8, n') Montgomery row
+    tensor.  Returns the two EvalProofs, byte-identical to two
+    open_without_eval_device calls."""
+    if len(opens) != 2:
+        raise ValueError(f"a pair open takes two opens, got {len(opens)}")
+    return _open_lockstep(cfg, opens, d, device)

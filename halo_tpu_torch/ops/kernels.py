@@ -12,7 +12,9 @@ per thread (cudaFuncGetAttributes).
 Each C entry returns cudaGetLastError(); `launch` raises on any non-zero
 value.  LAUNCHES counts launches per kernel: a wrapper adds one exactly
 where it launches its kernel, so a run can show that its main path went
-through every kernel.
+through every kernel.  COPIES counts the operand copies a wrapper makes
+before a launch because the kernel cannot read the operand in place
+(field_add and field_sub read any view whose lanes are contiguous).
 """
 
 from __future__ import annotations
@@ -34,8 +36,9 @@ SOURCES = (CSRC / "field.cuh", CSRC / "kernels.cu")
 BUILD_DIR = _PKG.parent / "build" / "halo_tpu_torch"
 
 NAMES = ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan", "ec_pmadd", "ec_pdbl",
-         "ec_smul")
+         "ec_smul", "field_add", "field_sub")
 LAUNCHES: dict[str, int] = {name: 0 for name in NAMES}
+COPIES: dict[str, int] = {name: 0 for name in NAMES}
 
 _vp, _ll, _int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
@@ -46,6 +49,8 @@ _SIGNATURES = {
     "halo_ec_pmadd": [_vp, _vp, _vp, _ll, _int, _int, _vp],
     "halo_ec_pdbl": [_vp, _vp, _ll, _int, _vp],
     "halo_ec_smul": [_vp, _vp, _vp, _ll, _int, _int, _vp],
+    "halo_field_add": [_vp, _vp, _vp, _ll, _ll, _int, _ll, _int, _int, _vp],
+    "halo_field_sub": [_vp, _vp, _vp, _ll, _ll, _int, _ll, _int, _int, _vp],
     "halo_kernel_registers": [_vp, _vp],
 }
 
@@ -57,10 +62,15 @@ BUILD_SECONDS: float | None = None
 def reset_counts() -> None:
     for name in NAMES:
         LAUNCHES[name] = 0
+        COPIES[name] = 0
 
 
 def counts() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+def copies() -> dict[str, int]:
+    return dict(COPIES)
 
 
 def _nvcc() -> str:
@@ -111,7 +121,7 @@ def build() -> ctypes.CDLL:
 # ec_pmadd_scan and ec_smul once for each thread-group size G
 REGISTER_KEYS = ("field_mul", "ntt_butterfly", "ec_padd G1", "ec_padd G2", "ec_padd G4",
                  "ec_pmadd_scan G1", "ec_pmadd_scan G2", "ec_pmadd_scan G4", "ec_pmadd",
-                 "ec_pdbl", "ec_smul G1", "ec_smul G2", "ec_smul G4")
+                 "ec_pdbl", "ec_smul G1", "ec_smul G2", "ec_smul G4", "field_add", "field_sub")
 
 
 def _resources() -> tuple[dict[str, int], dict[str, int]]:
@@ -144,14 +154,14 @@ def launch(name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def check_cuda(*tensors: torch.Tensor) -> None:
+def check_cuda(*tensors: torch.Tensor, contiguous: bool = True) -> None:
     """The argument checks every wrapper makes before a launch: int32 word
-    tensors, contiguous, on one device."""
+    tensors on one device, contiguous unless the kernel reads strides."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"tensors on different devices: {t.device} vs {dev}")
         if t.dtype != torch.int32:
             raise TypeError(f"expected torch.int32, got {t.dtype}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError("expected a contiguous tensor")

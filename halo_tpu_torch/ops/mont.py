@@ -19,6 +19,9 @@ kernel against its plain version on the card.
 | ec_smul        | k_ec_smul                | _pdbl_kernel :410 and _pmadd_kernel :308 with   |
 |                |                          | the fori_loop around them                       |
 |                |                          | (halo_tpu/ops/ecrows.py:60-77)                  |
+| field_add      | k_field_addsub (add)     | no Pallas kernel: the XLA fusion of             |
+| field_sub      | k_field_addsub (sub)     | halo_tpu/ops/ff.py add :129 and sub :134        |
+|                |                          | (field_neg: sub from a broadcast zero, :148)    |
 
 On canonical inputs field_mul, ec_padd and ec_pdbl also compute what the
 v1 kernels computed: halo_tpu/ops/pallas_ff.py:_mont_mul_kernel :77 and
@@ -84,6 +87,66 @@ def field_mul(m: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     kernels.launch("field_mul", out.data_ptr(), a.data_ptr(), b.data_ptr(), n,
                    1 if bcast else 0, ff.field_id(m))
     return out
+
+
+# ---------------- field_add, field_sub ---------------- #
+
+
+def field_add_plain(m: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    la, lb = ff.align(ff.words_to_limbs(a), ff.words_to_limbs(b))
+    return ff.limbs_to_words(ff.canon(m, la + lb))
+
+
+def field_sub_plain(m: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return ff.limbs_to_words(ff.canon(m, ff.lsub(m, ff.words_to_limbs(a), ff.words_to_limbs(b), 1)))
+
+
+def _addsub(name: str, plain, m: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    na, nb = a.shape[1:].numel(), b.shape[1:].numel()
+    if a.shape[0] != NWORDS or b.shape[0] != NWORDS \
+            or (a.shape != b.shape and na != 1 and nb != 1):
+        raise ValueError(f"{name} shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    if _is_cpu(a):
+        return plain(m, a, b)
+    shape = b.shape if nb != 1 else a.shape
+    n = shape[1:].numel()
+    ops = []
+    for t, count in ((a, na), (b, nb)):
+        bcast = count == 1
+        if not bcast and not t[0].is_contiguous():  # lanes not contiguous
+            t = t.contiguous()
+            kernels.COPIES[name] += 1
+        ops.append((t, t.stride(0), bcast))
+    (a, sa, ba), (b, sb, bb) = ops
+    kernels.check_cuda(a, b, contiguous=False)
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    kernels.launch(name, out.data_ptr(), a.data_ptr(), b.data_ptr(), n, sa, int(ba), sb,
+                   int(bb), ff.field_id(m))
+    return out
+
+
+def field_add(m: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a + b) mod m on canonical (8, *S) word rows (Montgomery or not).
+    b has a's shape, or either operand holds one element (8 words) that
+    every lane adds; any other pairing raises.  Operands are read in
+    place when their lanes are contiguous (a view such as x[:, :h] of an
+    (8, n) row, or x[:, :k] of an (8, K, n) stack).
+
+    Contract: canonical inputs (< m).  The kernel adds once and subtracts
+    m at most once (a + b < 2m); the plain version, which widens first,
+    reduces any 8-word value.  Every value on the engine's path is the
+    output of a kernel or of Engine.to_dev / const (v % m), so it holds."""
+    return _addsub("field_add", field_add_plain, m, a, b)
+
+
+def field_sub(m: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a - b) mod m; the shapes, views and contract of field_add."""
+    return _addsub("field_sub", field_sub_plain, m, a, b)
+
+
+def field_neg(m: int, a: torch.Tensor) -> torch.Tensor:
+    """-a mod m: field_sub from one broadcast zero."""
+    return field_sub(m, torch.zeros((NWORDS, 1), dtype=torch.int32, device=a.device), a)
 
 
 # ---------------- ntt_butterfly ---------------- #

@@ -4,10 +4,13 @@ Polynomials are canonical Montgomery word rows: one polynomial of n
 coefficients or evaluations is (8, n); a batch of k is (8, k, n).  The
 NTTs run on the ntt_butterfly kernel, every product on field_mul (on CUDA
 at every size: the JAX engine's 2^15-lane threshold for its rows kernel
-was a TPU compile-memory workaround), add/sub are plain torch, the grand
-product and batch inverse are Hillis-Steele scans over field_mul with one
-host inversion (mont.scan_mul, mont.batch_inv), and commitments are
-batched SRS MSMs (ops/msm2.py).
+was a TPU compile-memory workaround), add/sub on the field_add and
+field_sub kernels (no host read: the JAX engine's add_jit/sub_jit
+fusions), the grand product and batch inverse are Hillis-Steele scans
+over field_mul with one host inversion (mont.scan_mul, mont.batch_inv),
+and commitments are batched SRS MSMs (ops/msm2.py).  Host constants go
+to the card already in Montgomery form (consts): one copy for a batch of
+them, and none for a constant the engine has sent before.
 """
 
 from __future__ import annotations
@@ -19,6 +22,15 @@ from ..fields import R256
 from ..ops import ff, msm2, mont, ntt
 
 
+def _powers(m: int, x: int, n: int) -> list[int]:
+    out = [0] * n
+    cur = 1
+    for i in range(n):
+        out[i] = cur
+        cur = cur * x % m
+    return out
+
+
 class Engine:
     def __init__(self, cfg: CurveCfg, device):
         self.cfg = cfg
@@ -27,6 +39,7 @@ class Engine:
         self._one = ff.mont_one(self.m, self.device)
         self._r2 = ff.const_rows(R256 * R256 % self.m, self.device)
         self._unit = ff.const_rows(1, self.device)
+        self._consts: dict[int, torch.Tensor] = {}
 
     # ---------------- conversions ---------------- #
 
@@ -44,6 +57,20 @@ class Engine:
         """k lists of n ints -> (8, k, n) Montgomery rows (one transfer)."""
         flat = [v % self.m for col in cols for v in col]
         return self.to_dev(flat).reshape(ff.NWORDS, len(cols), -1)
+
+    def consts(self, vals: list[int]) -> torch.Tensor:
+        """ints -> (k, 8, 1) Montgomery constants in one host-to-device
+        copy; [i] is one contiguous (8, 1) element, as field_mul's
+        broadcast operand takes it."""
+        words = ff.ints_to_words([ff.mont_int(v % self.m, self.m) for v in vals])
+        return torch.from_numpy(words.view("<i4").copy()).to(self.device)[:, :, None]
+
+    def const(self, x: int) -> torch.Tensor:
+        """One (8, 1) Montgomery constant; sent to the card once per value."""
+        x %= self.m
+        if x not in self._consts:
+            self._consts[x] = self.consts([x])[0]
+        return self._consts[x]
 
     def to_ints(self, dev: torch.Tensor) -> list[int]:
         return ff.from_rows(self.from_mont(dev))
@@ -72,22 +99,17 @@ class Engine:
         return mont.field_mul(self.m, a, b)
 
     def add(self, a, b):
-        return ff.add(self.m, a, b)
+        return mont.field_add(self.m, a, b)
 
     def sub(self, a, b):
-        return ff.sub(self.m, a, b)
+        return mont.field_sub(self.m, a, b)
 
     def scale(self, a, s: int):
-        return self.mul(a, self.to_dev([s % self.m]))
+        return self.mul(a, self.const(s))
 
     def powers(self, x: int, n: int) -> torch.Tensor:
         """[1, x, x^2, ...] as (8, n) Montgomery rows (host-generated)."""
-        out = [0] * n
-        cur = 1
-        for i in range(n):
-            out[i] = cur
-            cur = cur * x % self.m
-        return self.to_dev(out)
+        return self.to_dev(_powers(self.m, x, n))
 
     def exact_sum(self, prods: torch.Tensor) -> list[int]:
         """Sums over the last axis of (8, *B, n) Montgomery rows -> len(B)
@@ -98,11 +120,18 @@ class Engine:
         return [sum(int(c) << (32 * i) for i, c in enumerate(row)) % self.m * rinv % self.m
                 for row in cols]
 
-    def eval_batch(self, coeffs: torch.Tensor, x: int) -> list[int]:
-        """Evaluate (8, k, n) coefficient batches at x -> k ints."""
+    def eval_batch(self, coeffs: torch.Tensor, x) -> list[int]:
+        """Evaluate (8, k, n) coefficient batches at x -> k ints; x is one
+        point for all k, or a list of k points, one for each polynomial
+        (one copy of all their powers and one pull)."""
         n = coeffs.shape[-1]
-        pw = self.powers(x, n).reshape(ff.NWORDS, *([1] * (coeffs.dim() - 2)), n)
-        return self.exact_sum(self.mul(coeffs, pw.expand_as(coeffs)))
+        if isinstance(x, int):
+            pw = self.powers(x, n).reshape(ff.NWORDS, *([1] * (coeffs.dim() - 2)), n)
+            pw = pw.expand_as(coeffs)
+        else:
+            pw = self.to_dev([v for xi in x for v in _powers(self.m, xi, n)])
+            pw = pw.reshape(coeffs.shape)
+        return self.exact_sum(self.mul(coeffs, pw))
 
     def divide_by_vanishing(self, coeffs: torch.Tensor, n: int) -> torch.Tensor:
         """Exact quotient by X^n - 1 of (8, k*n) coefficients."""

@@ -6,9 +6,10 @@ the bulk math in the port's Engine: extended-domain NTTs, the shared
 gate_constraints over (8, 8n) rows, the f'/g' products, the grand
 product, the quotient, batched commitments and the IPA opens.  The host
 keeps the Poseidon transcript and the challenge scalars.  Deterministic
-(non-hiding), so the proof bytes equal the host prover's.  Round 5 opens
-r and r_omega one after the other (halo_tpu's lockstep pair open gives
-the same bytes and is not ported).
+(non-hiding), so the proof bytes equal the host prover's.  Round 5
+commits to r and r_omega in one batched MSM, evaluates both with one
+pull and opens them in lockstep (ops/ipa.py open_pair_without_eval_device,
+halo_tpu's pair branch :224-246), on every device.
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ from __future__ import annotations
 import torch
 
 from .. import acc as acc_mod
-from .. import pcdl
 from ..curves import CurveCfg
+from ..ops import ipa
 from ..pcdl import Instance
 from ..poseidon.sponge import Protocols, Sponge
 from ..utils.timing import RoundTimer
@@ -118,8 +119,7 @@ def naive_prover_device(cfg: CurveCfg, circuit: PlonkCircuit, public_inputs: Plo
     # ---- Round 3 ----
     beta = transcript.challenge()
     gamma = transcript.challenge()
-    beta_dev = eng.to_dev([beta])
-    gamma_dev = eng.to_dev([gamma])
+    beta_dev, gamma_dev = eng.consts([beta, gamma])
 
     ids_big = eng.ntt_extended(ids_dev, big_n)
     sigmas_big = eng.ntt_extended(sigmas_dev, big_n)
@@ -198,12 +198,14 @@ def naive_prover_device(cfg: CurveCfg, circuit: PlonkCircuit, public_inputs: Plo
     # ---- Round 5 ----
     zeta = transcript.challenge()
 
-    def geometric_dev(stack):  # list of (8, n) -> (8, n)
+    def geometric_dev(stack):  # list of (8, n) -> sum_i zeta^i stack[i], (8, n)
+        zpows = [zeta]
+        while len(zpows) < len(stack) - 1:
+            zpows.append(zpows[-1] * zeta % m)
+        zdev = eng.consts(zpows)  # one copy for all of the combination's powers
         out = stack[0]
-        zpow = zeta
-        for p in stack[1:]:
-            out = eng.add(out, eng.scale(p, zpow))
-            zpow = zpow * zeta % m
+        for p, zp in zip(stack[1:], zdev):
+            out = eng.add(out, eng.mul(p, zp))
         return out
 
     r_dev = geometric_dev(list(qs_dev.unbind(1)) + list(ws_dev.unbind(1))
@@ -217,12 +219,11 @@ def naive_prover_device(cfg: CurveCfg, circuit: PlonkCircuit, public_inputs: Plo
 
     pair = torch.stack((r_dev, r_omega_dev), 1)
     C_r, C_rw = eng.commit_batch(pair, d)
-    v_r = eng.eval_batch(r_dev, z_r)[0]
-    v_rw = eng.eval_batch(r_omega_dev, z_rw)[0]
-    q_r = Instance(C=C_r, d=d, z=z_r, v=v_r,
-                   pi=pcdl.open_without_eval(cfg, r_dev, C_r, d, z_r, v_r, device))
-    q_r_omega = Instance(C=C_rw, d=d, z=z_rw, v=v_rw,
-                         pi=pcdl.open_without_eval(cfg, r_omega_dev, C_rw, d, z_rw, v_rw, device))
+    v_r, v_rw = eng.eval_batch(pair, [z_r, z_rw])
+    pi_r, pi_rw = ipa.open_pair_without_eval_device(
+        cfg, [(r_dev, C_r, z_r, v_r), (r_omega_dev, C_rw, z_rw, v_rw)], d, device)
+    q_r = Instance(C=C_r, d=d, z=z_r, v=v_r, pi=pi_r)
+    q_r_omega = Instance(C=C_rw, d=d, z=z_rw, v=v_rw, pi=pi_rw)
 
     acc_next = acc_mod.prover(cfg, [acc_prev.q, q_r, q_r_omega], device)
     timer.mark("round5.open+accumulate")

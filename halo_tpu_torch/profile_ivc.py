@@ -7,20 +7,31 @@ the port's kernels, and the shapes each kernel was launched at.
 Runs IVCState.init and `--steps` steps on the first CUDA device, timing
 the untraced ones, and traces the last one with torch.profiler (CPU and
 CUDA activities).  Device busy time is the sum of the CUDA kernels' self
-time in the trace; the idle share is 1 - busy / wall.  The host side is
-summarised by the CPU ops and CUDA runtime calls of most self time.
-During the traced step the kernel wrappers of ops/mont.py are wrapped
-here to count launches by shape (field_mul: lanes and broadcast;
-ntt_butterfly: lanes and half; ec_padd, ec_pmadd, ec_pdbl: lanes;
-ec_pmadd_scan: R x F; ec_smul: lanes and broadcast); the wrappers
-themselves are not touched.  Prints one JSON line; fails if the trace holds no device time.
+time in the trace; the idle share is 1 - busy / wall.  The device time
+and launches of kernels that are not the port's (torch's elementwise,
+reduce, copy and cat kernels) are summed apart.  The host side is
+summarised by the CPU ops and CUDA runtime calls of most self time, and
+by the calls and host seconds of cudaLaunchKernel, cudaStreamSynchronize,
+cudaMemcpyAsync and aten::any (HOST_CALLS: the launches, the host's
+waits for the card, the copies, and the any() of a carry loop).  During
+the traced step the kernel wrappers of ops/mont.py are wrapped here to
+count launches by shape (field_mul, field_add, field_sub: lanes and
+broadcast; ntt_butterfly: lanes and half; ec_padd, ec_pmadd, ec_pdbl:
+lanes; ec_pmadd_scan: R x F; ec_smul: lanes and broadcast); the wrappers
+themselves are not touched.  Each step's prover phases per curve
+(round5.open+accumulate: the IPA opens and the accumulation) come from
+the provers' RoundTimer lines (phase_times).  Prints one JSON line;
+fails if the trace holds no device time.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
+import logging
+import re
 import time
 
 import torch
@@ -32,11 +43,48 @@ from .frontend.ivc import IVCState, _params_from_reference_fixture
 from .ops import mont
 
 KERNELS = ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan", "ec_pmadd", "ec_pdbl",
-           "ec_smul")
+           "ec_smul", "field_add", "field_sub")
+HOST_CALLS = ("cudaLaunchKernel", "cudaStreamSynchronize", "cudaMemcpyAsync", "aten::any")
+_PHASE_LINE = re.compile(r"^(.*): ([^:\s]+): ([0-9.]+)s$")
+
+
+@contextlib.contextmanager
+def phase_times():
+    """While open, collect the provers' RoundTimer phases as (label,
+    phase, seconds), from the "<label>: <phase>: <seconds>s" lines that
+    utils/timing.py logs to the halo_tpu_torch.timing logger (set to
+    DEBUG here, which turns the timers on)."""
+    out = []
+
+    class _Collect(logging.Handler):
+        def emit(self, record):
+            m = _PHASE_LINE.match(record.getMessage())
+            if m:
+                out.append((m.group(1), m.group(2), float(m.group(3))))
+
+    log = logging.getLogger("halo_tpu_torch.timing")
+    handler, level = _Collect(), log.level
+    log.addHandler(handler)
+    log.setLevel(logging.DEBUG)
+    try:
+        yield out
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+
+
+def phase_by_curve(phases, phase: str = "round5.open+accumulate") -> dict:
+    """{curve: [seconds of `phase` in each proof, in order]}; the curve is
+    the first word in the prover label's brackets."""
+    out = collections.defaultdict(list)
+    for label, name, sec in phases:
+        if name == phase and "[" in label:
+            out[label.split("[", 1)[1].split(",")[0]].append(sec)
+    return dict(out)
 
 
 def _shape_key(name: str, args) -> str:
-    if name == "field_mul":
+    if name in ("field_mul", "field_add", "field_sub"):
         a, b = args[1], args[2]
         n = max(a.shape[1:].numel(), b.shape[1:].numel())
         return f"{n}{' bcast' if min(a.shape[1:].numel(), b.shape[1:].numel()) == 1 else ''}"
@@ -81,7 +129,10 @@ class _ShapeCounter:
 
 
 def _port_kernel(key: str) -> str | None:
-    """The port kernel a CUDA kernel name in the trace belongs to."""
+    """The port kernel a CUDA kernel name in the trace belongs to
+    (field_add and field_sub are k_field_addsub<F, false / true>)."""
+    if "k_field_addsub<" in key:
+        return "field_sub" if "true>" in key else "field_add"
     for name in sorted(KERNELS, key=len, reverse=True):
         if f"k_{name}<" in key or f"k_{name}(" in key:
             return name
@@ -91,18 +142,21 @@ def _port_kernel(key: str) -> str | None:
 def profile_step(dev: torch.device, steps: int) -> dict:
     """Init, steps - 1 untraced steps, then one traced step."""
     state = IVCState.init(_params_from_reference_fixture(), dev)
-    untraced = []
+    untraced, round5 = [], []
     for _ in range(steps - 1):
-        t0 = time.perf_counter()
-        state = state.prove()
-        devmod.sync(dev)
-        untraced.append(time.perf_counter() - t0)
-    with _ShapeCounter() as shapes, \
+        with phase_times() as phases:
+            t0 = time.perf_counter()
+            state = state.prove()
+            devmod.sync(dev)
+            untraced.append(time.perf_counter() - t0)
+        round5.append(phase_by_curve(phases))
+    with phase_times() as phases, _ShapeCounter() as shapes, \
             profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state = state.prove()
         devmod.sync(dev)
         wall = time.perf_counter() - t0
+    round5.append(phase_by_curve(phases))
     averages = prof.key_averages()
     kernels = sorted(((e.key, e.self_device_time_total / 1e6, e.count)
                       for e in averages if e.device_type == DeviceType.CUDA),
@@ -114,15 +168,22 @@ def profile_step(dev: torch.device, steps: int) -> dict:
     if busy <= 0:
         raise RuntimeError("the trace holds no device time")
     port = {name: {"device_s": 0.0, "calls": 0} for name in KERNELS}
+    other = {"device_s": 0.0, "calls": 0}
     for key, dev_s, calls in kernels:
         name = _port_kernel(key)
-        if name is not None:
-            port[name]["device_s"] += dev_s
-            port[name]["calls"] += calls
+        slot = port[name] if name is not None else other
+        slot["device_s"] += dev_s
+        slot["calls"] += calls
+    host_calls = {name: {"calls": 0, "host_s": 0.0} for name in HOST_CALLS}
+    for e in averages:
+        if e.key in host_calls:
+            host_calls[e.key]["calls"] += e.count
+            host_calls[e.key]["host_s"] += e.self_cpu_time_total / 1e6
     return {
         "card": devmod.card_line(), "step": state.i, "untraced_steps_s": untraced, "wall_s": wall,
-        "split_s": state.timings, "device_busy_s": busy, "idle_share": 1 - busy / wall,
-        "port_kernels": port, "launch_shapes": shapes.as_dict(),
+        "split_s": state.timings, "round5_open_accumulate_s": round5, "device_busy_s": busy,
+        "idle_share": 1 - busy / wall, "port_kernels": port, "other_kernels": other,
+        "host_calls": host_calls, "launch_shapes": shapes.as_dict(),
         "top_kernels": [{"name": k[0][:80], "device_s": k[1], "calls": k[2]}
                         for k in kernels[:8]],
         "top_host_ops": [{"name": k[0][:80], "host_s": k[1], "calls": k[2]}

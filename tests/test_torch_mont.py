@@ -177,6 +177,10 @@ def _check_wrappers_take_plain_version_only_on_cpu():
         mont.ec_pdbl(FQ_MOD, P)
     with pytest.raises(ValueError, match="unsupported device"):
         mont.ec_smul(FQ_MOD, torch.zeros((16, 1), dtype=torch.int32, device="meta"), a)
+    with pytest.raises(ValueError, match="unsupported device"):
+        mont.field_add(FP_MOD, a, a[:, :1])
+    with pytest.raises(ValueError, match="unsupported device"):
+        mont.field_sub(FQ_MOD, a[:, :1], a)
 
 
 def _check_kernel_sources_not_built_on_import():
@@ -184,7 +188,7 @@ def _check_kernel_sources_not_built_on_import():
     # from the sources alone
     assert kernels.library_path().name.startswith("libhalo_kernels-")
     assert set(kernels.counts()) == {"field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan",
-                                     "ec_pmadd", "ec_pdbl", "ec_smul"}
+                                     "ec_pmadd", "ec_pdbl", "ec_smul", "field_add", "field_sub"}
 
 
 # ---------------- on the card: each kernel against its plain version ----------------
@@ -219,6 +223,34 @@ def _check_cuda_field_mul(cuda_device, m):
     got = mont.field_mul(m, xr, yr)
     assert got.equal(mont.field_mul_plain(m, xr, yr))
     assert ff.from_rows(got) == [x * y * pow(R256, -1, m) % m for x, y in pairs]
+
+
+def _check_cuda_field_add_sub(cuda_device, m):
+    """field_add and field_sub against their plain versions: whole rows,
+    either operand broadcast, lane-contiguous views read in place, the
+    edge values (sums on the conditional subtract, differences that add m
+    back), and a view the wrapper has to copy."""
+    edge = [0, 1, m - 1]
+    rng = random.Random(m % 991)
+    hi = [rng.randrange(m // 2, m) for _ in range(32)]
+    xs = [x for x in edge for _ in edge] + hi + [rng.randrange(m) for _ in range(4099 - 41)]
+    ys = edge * 3 + hi[::-1] + [rng.randrange(m) for _ in range(4099 - 41)]
+    a, b = ff.to_rows(xs, cuda_device), ff.to_rows(ys, cuda_device)
+    stack_a, stack_b = a[:, :4096].reshape(8, 4, 1024), b[:, :4096].reshape(8, 4, 1024)
+    forms = [(a, b), (a, b[:, 5:6]), (b[:, 5:6], a), (a[:, :2049], a[:, 2049:4098]),
+             (stack_a[:, :3], stack_b[:, 1:]), (stack_a[:, 1:], b[:, 7:8]),
+             (a[:, :4096].reshape(8, 64, 64).transpose(1, 2), stack_b.reshape(8, 64, 64))]
+    for name, fn, plain in (("field_add", mont.field_add, mont.field_add_plain),
+                            ("field_sub", mont.field_sub, mont.field_sub_plain)):
+        for x, y in forms:
+            launches, copies = kernels.counts()[name], kernels.copies()[name]
+            got = fn(m, x, y)
+            assert kernels.counts()[name] == launches + 1
+            in_place = x[0].is_contiguous() and y[0].is_contiguous()
+            assert kernels.copies()[name] == copies + (0 if in_place else 1)
+            assert got.equal(plain(m, x, y)), (name, tuple(x.shape), tuple(y.shape))
+    got = ff.from_rows(mont.field_neg(m, a))
+    assert got == [(-x) % m for x in xs]
 
 
 def _check_cuda_ntt_butterfly(cuda_device, m):
@@ -300,6 +332,7 @@ def test_plain_versions():
 def test_cuda_kernels_match_plain(cuda_device):
     for m in MODS:
         _check_cuda_field_mul(cuda_device, m)
+        _check_cuda_field_add_sub(cuda_device, m)
         _check_cuda_ntt_butterfly(cuda_device, m)
     for cfg in CURVES:
         _check_cuda_ec_kernels(cuda_device, cfg)

@@ -1,5 +1,6 @@
 """The port's prover slice on the CPU: engine ops against host ints, the
-IPA open against halo_tpu.pcdl, the golden proof fixtures byte for byte,
+single and the pair IPA open against halo_tpu.pcdl, the golden proof
+fixtures (whose round 5 runs the pair open) byte for byte,
 and a 2^8-row Poseidon-chain proof byte-equal to halo_tpu's host prover
 built from the same TraceBuilder, whose device mirrors equal halo_tpu's
 through convert.py.
@@ -71,8 +72,18 @@ def _check_engine_ops_vs_host_ints(cfg):
     x = rng.randrange(m)
     polys = [[rng.randrange(m) for _ in range(n)] for _ in range(3)]
     assert eng.eval_batch(eng.to_dev_batch(polys), x) == [poly_eval(m, p, x) for p in polys]
+    xs = [x, rng.randrange(m), 0]  # one point per polynomial, one pull
+    assert eng.eval_batch(eng.to_dev_batch(polys), xs) == [
+        poly_eval(m, p, xi) for p, xi in zip(polys, xs)]
     assert eng.to_ints(eng.powers(x, 4)) == [1, x, x * x % m, x * x * x % m]
+    # scale takes its constant in Montgomery form from the host, once per
+    # value; consts sends a batch in one copy
     assert eng.to_ints(eng.scale(dev, x)) == [v * x % m for v in a]
+    assert eng.to_ints(eng.scale(dev, x + m)) == [v * x % m for v in a]
+    assert eng.const(x) is eng.const(x + m)
+    ks = eng.consts([x, 1, m - 1])
+    assert ks.shape == (3, 8, 1) and all(k.is_contiguous() for k in ks)
+    assert [eng.to_ints(k)[0] for k in ks] == [x, 1, m - 1]
 
     # commitments against the host Pedersen commitment
     assert eng.commit_batch(eng.to_dev_batch(polys), n - 1) == [
@@ -82,19 +93,34 @@ def _check_engine_ops_vs_host_ints(cfg):
 # ---------------- IPA ---------------- #
 
 
-def _check_ipa_open_matches_host_bytes(as_tensor):
-    cfg = PALLAS
-    n = 256
-    rng = random.Random(7)
-    p = [rng.randrange(cfg.r) for _ in range(n - 3)]  # shorter than n: zero padded
+def _ipa_case(cfg, n, seed):
+    """A polynomial shorter than n (zero padded), its commitment, a point,
+    the value there, and halo_tpu.pcdl's host open of it."""
+    rng = random.Random(seed)
+    p = [rng.randrange(cfg.r) for _ in range(n - 3)]
     z = rng.randrange(cfg.r)
     C = hpcdl.commit(cfg, p, n - 1)
     v = hpcdl.poly_eval(cfg, p, z)
-    want = hpcdl.open_without_eval(cfg, p, C, n - 1, z, v)
-    arg = Engine(cfg, CPU).to_dev(p) if as_tensor else p
-    got = ipa.open_without_eval_device(cfg, arg, C, n - 1, z, v, CPU)
-    assert _eval_proof_bytes(got, cfg) == _eval_proof_bytes(want, cfg)
-    pcdl.check(cfg, C, n - 1, z, v, got, CPU)
+    return p, C, z, v, hpcdl.open_without_eval(cfg, p, C, n - 1, z, v)
+
+
+def _check_ipa_opens_match_host_bytes():
+    """The single open (a host list) and the pair open (a host list and a
+    tensor, in lockstep) against halo_tpu.pcdl's host opens, byte for
+    byte; every proof passes pcdl.check."""
+    cfg = PALLAS
+    n = 256
+    p0, C0, z0, v0, want0 = _ipa_case(cfg, n, 7)
+    p1, C1, z1, v1, want1 = _ipa_case(cfg, n, 8)
+    got = ipa.open_without_eval_device(cfg, p0, C0, n - 1, z0, v0, CPU)
+    assert _eval_proof_bytes(got, cfg) == _eval_proof_bytes(want0, cfg)
+    pair = ipa.open_pair_without_eval_device(
+        cfg, [(p0, C0, z0, v0), (Engine(cfg, CPU).to_dev(p1), C1, z1, v1)], n - 1, CPU)
+    for got, want, (C, z, v) in zip(pair, (want0, want1), ((C0, z0, v0), (C1, z1, v1))):
+        assert _eval_proof_bytes(got, cfg) == _eval_proof_bytes(want, cfg)
+        pcdl.check(cfg, C, n - 1, z, v, got, CPU)
+    with pytest.raises(ValueError):
+        ipa.open_pair_without_eval_device(cfg, [(p0, C0, z0, v0)], n - 1, CPU)
 
 
 def _check_pcdl_rejects_hiding_and_bad_check():
@@ -128,8 +154,7 @@ def _check_golden_proof_bytes():
 def test_engine_ipa_and_golden_proofs():
     for cfg in (PALLAS, VESTA):
         _check_engine_ops_vs_host_ints(cfg)
-    for as_tensor in (False, True):
-        _check_ipa_open_matches_host_bytes(as_tensor)
+    _check_ipa_opens_match_host_bytes()
     _check_pcdl_rejects_hiding_and_bad_check()
     _check_golden_proof_bytes()
 
