@@ -63,16 +63,33 @@ phase falls back to the CPU or to a plain version:
               SRS lanes, the 8 * 2^16 extended domain, a 2^16 commitment's
               scan), over each curve's fields; the kernels line reports
               the Pallas ones
+  9. schnorr  poseidon_permute against its plain version at (3, 8, 8192)
+              on both fields, timed there and at 2^16 states; then the
+              counted run on Pallas: sign_batch of 8192 seeded 10-field
+              messages (one ec_smul launch, one hash batch of 8
+              poseidon_permute launches), verify_batch of them (8 more,
+              one ec_pmadd_scan of 65 steps): every lane must pass, and
+              eight seeded lanes must pass host verify too; then
+              verify_batch warm (sig/s, median and spread of 7
+              calls, and the split of 3 more: its stages run in turn,
+              packing, hash, scan, compare); ec_smul (sign_batch's nonces,
+              the generator broadcast over 8192 lanes) and ec_pmadd_scan
+              (the last split's 65 x 8192 indices over the 16,385-point
+              table) against their plain versions, timed; bench.py's control (s of lane 0 flipped: lane 0
+              alone fails), three tamperings (s, message, R: those lanes
+              alone fail), and Vesta at 512 signatures with one flipped s
 
-Each counted run (srs, plonk, ivc) sets every kernel's launch count to 0
+Each counted run (srs, plonk, ivc, schnorr) sets every kernel's launch count to 0
 just before it and reads the counts just after; a kernel of that path with
 no launch fails the run, and so does any launch of ec_pmadd or ec_pdbl,
 a derivation that launches ec_smul other than once, or any call of the
 plain limb code's ff.canon on a CUDA tensor (the plain field add/sub used
 to block the host on every carry round; the line also gives the operand
 copies a wrapper made because a view's lanes were not contiguous).  The last three
-lines: the kernels JSON, the nvidia-smi line, and {"ok": true, "device":
-{...}}.  The script imports torch and halo_tpu_torch only, never jax or
+lines: the kernels JSON (each kernel's `launches` is the IVC run's count,
+poseidon_permute's the schnorr run's, as `launches_path` names it;
+`launches_by_path` gives every run's), the nvidia-smi line, and
+{"ok": true, "device": {...}}.  The script imports torch and halo_tpu_torch only, never jax or
 halo_tpu; the run fails if any module of either was loaded.
 
 A kernel's ms is host-paced, as since the first port: the wrapper called
@@ -84,7 +101,8 @@ time.  plain_ms is host-paced.
 bound_ms is the least time the card could take for a kernel's work at the
 timed shape (halo_tpu_torch/measure.py: work() and bound()): the larger
 of its bytes (each input read once, each output written once) over
-3.35 TB/s and its 32-bit multiply-adds (136 per field product) over
+3.35 TB/s and its 32-bit multiply-adds (136 per field product; 24 ops
+per field add where a kernel's adds are counted, poseidon_permute) over
 16.7 T/s (132 SMs x 64 multiply-adds per clock x 1.98 GHz, the integer
 rate of an H100 SXM at its 700 W limit).
 """
@@ -110,10 +128,12 @@ REPLACES = {
     "ec_smul": "halo_tpu/ops/pallas_mont.py:410",
     "field_add": "halo_tpu/ops/ff.py:129",
     "field_sub": "halo_tpu/ops/ff.py:134",
+    "poseidon_permute": "halo_tpu/ops/poseidon.py:57",
 }
 # field_add and field_sub replace XLA fusions (the JAX engine's add_jit,
-# sub_jit), not Pallas kernels
-XLA_FUSIONS = ("field_add", "field_sub")
+# sub_jit), not Pallas kernels; poseidon_permute replaces permute_batch's
+# lax.scan, which XLA fused into one dispatch
+XLA_FUSIONS = ("field_add", "field_sub", "poseidon_permute")
 # ec_smul is the ladder of both point kernels and the loop around them
 REPLACES_ALSO = {"ec_smul": ["halo_tpu/ops/pallas_mont.py:308", "halo_tpu/ops/pallas_ec.py:149",
                              "halo_tpu/ops/ecrows.py:60"]}
@@ -125,10 +145,19 @@ PATH_KERNELS = {
               "field_sub"),
     "ivc": ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan", "ec_smul", "field_add",
             "field_sub"),
+    "schnorr": ("field_mul", "field_add", "field_sub", "ec_smul", "ec_pmadd_scan",
+                "poseidon_permute"),
 }
 OFF_PATH = ("ec_pmadd", "ec_pdbl")
+# the counted run a kernel's `launches` comes from: the IVC step's, as
+# since the first slice, except for a kernel that runs only on a later path
+LAUNCHES_FROM = {"poseidon_permute": "schnorr"}
 IVC_LOG_ROWS = 16
 IVC_ROWS = 1 << IVC_LOG_ROWS
+SCHNORR_N = 8192  # bench.py:381's batch
+SCHNORR_VESTA_N = 512
+SCHNORR_MSG = 10  # fields a message
+POSEIDON_WIDE = 1 << 16  # states: a poseidon_permute launch that fills the card
 
 
 def _phase(name: str, msg: str) -> None:
@@ -387,7 +416,7 @@ def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
         return ff.to_rows(edge + [rng.randrange(1 << 256) for _ in range(k - len(edge))], dev)
 
     k_srs = scalars(lanes)
-    g = srs.pack_points(cfg, [cfg.generator[0]], [cfg.generator[1]], dev)
+    g = ecrows.pack_points(p, [cfg.generator[0]], [cfg.generator[1]], dev)
     report("ec_smul", mont.ec_smul(p, g, k_srs), mont.ec_smul_plain(p, g, k_srs), p,
            lambda: mont.ec_smul(p, g, k_srs), 3, lambda: mont.ec_smul_plain(p, g, k_srs),
            measure.work("ec_smul", lanes, bcast=True))
@@ -599,6 +628,245 @@ def _ivc_path(dev, steps: int) -> dict:
     return launches
 
 
+def _poseidon_vs_plain(dev, seed: int) -> dict:
+    """poseidon_permute against its plain version at the Schnorr batch's
+    shape, (3, 8, 8192), on both fields; timed there (Pallas base field)
+    and at POSEIDON_WIDE states, a width that fills the card."""
+    import torch
+
+    from halo_tpu_torch import measure
+    from halo_tpu_torch.curves import PALLAS
+    from halo_tpu_torch.fields import FP_MOD, FQ_MOD
+    from halo_tpu_torch.ops import ff, poseidon
+
+    rng = random.Random(seed)
+    out = {}
+    for m in (FQ_MOD, FP_MOD):
+        vals = [0, 0, 0, m - 1, m - 1, m - 1] + [rng.randrange(m) for _ in range(3 * POSEIDON_WIDE - 6)]
+        st = ff.to_rows(vals, dev).reshape(8, -1, 3).permute(2, 0, 1).contiguous()
+        st_n = st[:, :, :SCHNORR_N].contiguous()
+        got, want = poseidon.permute_batch(m, st_n), poseidon.poseidon_permute_plain(m, st_n)
+        err = int((got.long() - want.long()).abs().max())
+        if err != 0:
+            raise AssertionError(f"poseidon_permute and plain differ (max_abs_err {err})")
+        if max(ff.from_rows(got.permute(1, 0, 2).reshape(8, -1)[:, ::97])) >= m:
+            raise AssertionError("poseidon_permute: output not canonical")
+        if m != PALLAS.p:
+            continue
+        bound_ms, bound_by = measure.bound(*measure.work("poseidon_permute", SCHNORR_N))
+        wide_bound, _ = measure.bound(*measure.work("poseidon_permute", st.shape[2]))
+        out["poseidon_permute"] = {
+            "max_abs_err": err,
+            "ms": measure.host_paced_ms(lambda: poseidon.permute_batch(m, st_n), 20),
+            "plain_ms": measure.host_paced_ms(lambda: poseidon.poseidon_permute_plain(m, st_n), 1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "device_ms": measure.device_ms(lambda: poseidon.permute_batch(m, st_n), 20),
+            "shape": list(got.shape),
+            "wide": {"shape": list(st.shape), "bound_ms": wide_bound,
+                     "device_ms": measure.device_ms(lambda: poseidon.permute_batch(m, st), 5)}}
+    r = out["poseidon_permute"]
+    _phase("schnorr", f"poseidon_permute equal to plain at (3, 8, {SCHNORR_N}) on both fields; "
+                      f"pallas base field: kernel {r['ms']:.4f} ms host-paced ({r['device_ms']:.4f} "
+                      f"ms device), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                      f"({r['bound_by']}); at (3, 8, {r['wide']['shape'][2]}): "
+                      f"{r['wide']['device_ms']:.4f} ms device, bound "
+                      f"{r['wide']['bound_ms']:.4f} ms")
+    return out
+
+
+def _check_schnorr_table(cfg, pk, dev) -> list[int]:
+    """The verifier's device table for (cfg, pk) against host ec_mul at a
+    few columns: [w*256 + j] = (j+1) 2^(8w) G, the same from TABLE for pk,
+    and the last -OFF (G + pk), OFF = sum_w 2^(8w); returns the columns."""
+    from halo_tpu_torch.curves import ec_add, ec_mul
+    from halo_tpu_torch.fields import R256
+    from halo_tpu_torch.ops import ff, schnorr_batch
+
+    T, p = schnorr_batch.TABLE, cfg.p
+    cols = [0, 1, 255, 256, T - 1, T, T + 257, 2 * T - 1, schnorr_batch.CORRECTION]
+    table = schnorr_batch.tables(cfg, pk, dev)
+    rinv = pow(R256, -1, p)
+    xs, ys = (ff.from_rows(table[rows, cols]) for rows in (slice(0, 8), slice(8, 16)))
+    off = int.from_bytes(b"\x01" * schnorr_batch.WINDOWS, "little")
+    for c, x, y in zip(cols, xs, ys):
+        if c == schnorr_batch.CORRECTION:
+            q = ec_mul(cfg, ec_add(cfg, cfg.generator, pk), off)
+            want = (q[0], (p - q[1]) % p)
+        else:
+            w, j = divmod(c % T, 256)
+            want = ec_mul(cfg, cfg.generator if c < T else pk, (j + 1) << (8 * w))
+        if (x * rinv % p, y * rinv % p) != want:
+            raise AssertionError(f"the verifier's table differs from host ec_mul at column {c}")
+    return cols
+
+
+def _verify_split(dev, cfg, pk, msgs, sigs):
+    """verify_batch's stages (ops/schnorr_batch.py) run in turn with the
+    card synchronised between them: (seconds of pack, hash, scan and
+    compare, and the total; the scan's table, idx and neg)."""
+    from halo_tpu_torch import device as devmod
+    from halo_tpu_torch.ops import mont, schnorr_batch
+
+    marks = [time.perf_counter()]
+
+    def mark():
+        devmod.sync(dev)
+        marks.append(time.perf_counter())
+
+    V, S, R_xy, table = schnorr_batch.pack_batch(cfg, pk, msgs, sigs, dev)
+    mark()
+    e = schnorr_batch.challenge_rows(cfg, V)
+    mark()
+    idx, neg = schnorr_batch.scan_indices(cfg, S, e)
+    acc = mont.ec_pmadd_scan(cfg.p, table, idx, neg)[:, :, -1]
+    mark()
+    if not all(schnorr_batch.compare(cfg, R_xy, acc)):
+        raise AssertionError("verify_batch's stages, run in turn, rejected a signature")
+    mark()
+    split = {k: b - a for k, a, b in zip(("pack", "hash", "scan", "compare"), marks, marks[1:])}
+    split["total"] = marks[-1] - marks[0]
+    return split, (table, idx, neg)
+
+
+def _schnorr_kernels_vs_plain(dev, cfg, ks, scan_in) -> dict:
+    """ec_smul and ec_pmadd_scan against their plain versions at the
+    Schnorr path's own shapes and inputs, timed there: sign_batch's nonces
+    times the broadcast generator (8192 lanes: four threads a lane), and
+    verify_batch's scan (65 steps x 8192 lanes over the 16,385-point
+    table, no negations)."""
+    from halo_tpu_torch import measure
+    from halo_tpu_torch.ops import ecrows, ff, mont
+
+    p, n = cfg.p, len(ks)
+    g = ecrows.pack_points(p, [cfg.generator[0]], [cfg.generator[1]], dev)
+    k = ff.to_rows(ks, dev)
+    table, idx, neg = scan_in
+    out = {}
+    for name, call, plain, work in (
+            ("ec_smul", lambda: mont.ec_smul(p, g, k), lambda: mont.ec_smul_plain(p, g, k),
+             measure.work("ec_smul", n, bcast=True)),
+            ("ec_pmadd_scan", lambda: mont.ec_pmadd_scan(p, table, idx, neg),
+             lambda: mont.ec_pmadd_scan_plain(p, table, idx, neg),
+             measure.work("ec_pmadd_scan", R=idx.shape[0], F=idx.shape[1],
+                          npts=table.shape[1]))):
+        got, want = call(), plain()
+        if got.shape != want.shape or not got.equal(want):
+            raise AssertionError(f"{name} at the schnorr path's shape: kernel and plain differ")
+        bound_ms, bound_by = measure.bound(*work)
+        out[name] = {"max_abs_err": 0, "ms": measure.host_paced_ms(call, 5),
+                     "device_ms": measure.device_ms(call, 5),
+                     "plain_ms": measure.host_paced_ms(plain, 1), "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None, "shape": list(got.shape)}
+        r = out[name]
+        _phase("schnorr", f"{name} ({cfg.name}) equal to plain at {tuple(got.shape)}; kernel "
+                          f"{r['ms']:.4f} ms host-paced ({r['device_ms']:.4f} ms device), plain "
+                          f"{r['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return out
+
+
+def _schnorr_path(dev, seed: int) -> tuple[dict, dict]:
+    """The counted Schnorr run (sign_batch and verify_batch at 8192 on
+    Pallas), then warm timings, ec_smul and ec_pmadd_scan against their
+    plain versions at the run's shapes, and the tampering controls.
+    Returns (the counted run's launches, the kernels held and timed)."""
+    import statistics
+
+    from halo_tpu_torch import device as devmod
+    from halo_tpu_torch import schnorr
+    from halo_tpu_torch.curves import PALLAS, VESTA, ec_mul
+    from halo_tpu_torch.ops import kernels
+
+    cfg, n = PALLAS, SCHNORR_N
+    rng = random.Random(seed)
+    sk, pk = schnorr.generate_keypair(cfg, rng)
+    msgs = [[rng.randrange(cfg.p) for _ in range(SCHNORR_MSG)] for _ in range(n)]
+    nonces = random.Random()
+    nonces.setstate(rng.getstate())  # sign_batch draws its nonces from here
+
+    def run():
+        t0 = time.perf_counter()
+        sigs = schnorr.sign_batch(cfg, sk, msgs, dev, rng=rng)
+        devmod.sync(dev)
+        t_sign = time.perf_counter() - t0
+        after_sign = kernels.counts()
+        t0 = time.perf_counter()
+        ok = schnorr.verify_batch(cfg, pk, msgs, sigs, dev)
+        t_verify = time.perf_counter() - t0
+        after = kernels.counts()
+        return sigs, ok, t_sign, t_verify, after_sign, {k: after[k] - after_sign[k] for k in after}
+
+    (sigs, ok, t_sign, t_verify, on_sign, on_verify), launches = _counted("schnorr", run)
+    want = {"sign": {"ec_smul": 1, "poseidon_permute": 8, "ec_pmadd_scan": 0},
+            "verify": {"ec_smul": 0, "poseidon_permute": 8, "ec_pmadd_scan": 1}}
+    for what, counts in (("sign", on_sign), ("verify", on_verify)):
+        got = {k: counts[k] for k in want[what]}
+        if got != want[what]:
+            raise AssertionError(f"{what}_batch launched {got}, wanted {want[what]}")
+    if not all(ok):
+        raise AssertionError(f"{ok.count(False)} of {n} fresh signatures failed verify_batch")
+    lanes = [0, n - 1] + sorted(random.Random(seed).sample(range(1, n - 1), 6))
+    for i in lanes:
+        if not schnorr.verify(cfg, pk, msgs[i], sigs[i]):
+            raise AssertionError(f"lane {i}: the batch's signature fails host verify")
+    cols = _check_schnorr_table(cfg, pk, dev)
+    _phase("schnorr", f"pallas, {n} signatures of {SCHNORR_MSG}-field messages: sign_batch "
+                      f"{t_sign:.3f} s, verify_batch {t_verify:.3f} s (first call, with the "
+                      f"host tables); all verified; lanes {lanes} verified on the host too; "
+                      f"the card's table equal to host ec_mul at columns {cols}; "
+                      f"launches: sign {json.dumps(on_sign)}, verify {json.dumps(on_verify)}")
+
+    walls = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        if not all(schnorr.verify_batch(cfg, pk, msgs, sigs, dev)):
+            raise AssertionError("a warm verify_batch call rejected a signature")
+        walls.append(time.perf_counter() - t0)
+    rates = sorted(n / w for w in walls)
+    splits = [_verify_split(dev, cfg, pk, msgs, sigs) for _ in range(3)]
+    med = {k: statistics.median(s[k] for s, _ in splits) for k in splits[0][0]}
+    _phase("schnorr", f"verify_batch warm, {n} signatures, 7 calls: median "
+                      f"{statistics.median(rates):.1f} sig/s (min {rates[0]:.1f}, max "
+                      f"{rates[-1]:.1f}); walls {[round(w, 4) for w in walls]} s; split (median "
+                      f"of 3 synchronised calls): "
+                      + ", ".join(f"{k} {v:.4f} s" for k, v in med.items()))
+
+    ks = [nonces.randrange(1, cfg.r) for _ in range(n)]
+    if [sig.r for sig in sigs[:4]] != [ec_mul(cfg, cfg.generator, k) for k in ks[:4]]:
+        raise AssertionError("the nonces redrawn from the seed are not sign_batch's")
+    held = _schnorr_kernels_vs_plain(dev, cfg, ks, splits[-1][1])
+
+    bad = list(sigs)
+    bad[0] = schnorr.SchnorrSignature(r=bad[0].r, s=(bad[0].s + 1) % cfg.r)
+    got = schnorr.verify_batch(cfg, pk, msgs, bad, dev)
+    if got[0] or not all(got[1:]):
+        raise AssertionError("flipped s of lane 0: not exactly lane 0 failed")
+    bad = list(sigs)
+    bad_msgs = list(msgs)
+    bad[1] = schnorr.SchnorrSignature(r=bad[1].r, s=(bad[1].s + 1) % cfg.r)
+    bad_msgs[3] = [(msgs[3][0] + 1) % cfg.p] + msgs[3][1:]
+    bad[4] = schnorr.SchnorrSignature(r=bad[0].r, s=bad[4].s)
+    got = schnorr.verify_batch(cfg, pk, bad_msgs, bad, dev)
+    if [i for i, v in enumerate(got) if not v] != [1, 3, 4]:
+        raise AssertionError("tampered lanes 1, 3, 4: other lanes failed or they passed")
+
+    vcfg, vn = VESTA, SCHNORR_VESTA_N
+    vsk, vpk = schnorr.generate_keypair(vcfg, rng)
+    vmsgs = [[rng.randrange(vcfg.p) for _ in range(SCHNORR_MSG)] for _ in range(vn)]
+    vsigs = schnorr.sign_batch(vcfg, vsk, vmsgs, dev, rng=rng)
+    for i in (0, vn - 1):
+        if not schnorr.verify(vcfg, vpk, vmsgs[i], vsigs[i]):
+            raise AssertionError(f"vesta lane {i}: the batch's signature fails host verify")
+    vsigs[5] = schnorr.SchnorrSignature(r=vsigs[5].r, s=(vsigs[5].s + 1) % vcfg.r)
+    got = schnorr.verify_batch(vcfg, vpk, vmsgs, vsigs, dev)
+    if [i for i, v in enumerate(got) if not v] != [5]:
+        raise AssertionError("vesta: not exactly the tampered lane 5 failed")
+    _phase("schnorr", "controls: s of lane 0 flipped -> lane 0 alone fails; s of lane 1, the "
+                      "message of lane 3, R of lane 4 -> those alone fail; vesta, "
+                      f"{vn} signatures, s of lane 5 flipped -> lane 5 alone fails")
+    _phase("schnorr", f"kernel launches, sign + verify: {json.dumps(launches)}")
+    return launches, held
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-rows", type=int, default=14)
@@ -673,6 +941,11 @@ def main() -> int:
     for cfg in (VESTA, PALLAS):
         checked[f"ivc {cfg.name}"] = _kernels_vs_plain(dev, cfg, IVC_LOG_ROWS, args.seed)
 
+    # 9. the Schnorr batch
+    checked["schnorr pallas"] = _poseidon_vs_plain(dev, args.seed)
+    by_path["schnorr"], held = _schnorr_path(dev, args.seed)
+    checked["schnorr pallas"].update(held)
+
     loaded = sorted(k for k, v in sys.modules.items()
                     if v is not None and k.split(".")[0] in ("jax", "jaxlib", "halo_tpu"))
     if loaded:
@@ -682,16 +955,20 @@ def main() -> int:
         return table[name] if name in table else \
             {k.split()[1]: v for k, v in table.items() if k.split()[0] == name}
 
+    def measured(name):
+        return checked["ivc pallas"].get(name) or checked["schnorr pallas"][name]
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": "halo_tpu_torch/csrc/kernels.cu",
          "replaces": REPLACES[name], **({"replaces_also": REPLACES_ALSO[name]}
                                         if name in REPLACES_ALSO else {}),
          **({"replaces_kind": "XLA fusion"} if name in XLA_FUSIONS else {}),
-         "launches": by_path["ivc"][name],
+         "launches": by_path[LAUNCHES_FROM.get(name, "ivc")][name],
+         "launches_path": LAUNCHES_FROM.get(name, "ivc"),
          "launches_by_path": {path: c[name] for path, c in by_path.items()},
          "registers": per_instance(regs, name), "local_bytes": per_instance(local, name),
-         **checked["ivc pallas"][name],
-         "shapes_checked": {path: c[name]["shape"] for path, c in checked.items()}}
+         **measured(name),
+         "shapes_checked": {path: c[name]["shape"] for path, c in checked.items() if name in c}}
         for name in kernels.NAMES]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,12 +2,14 @@
 Pasta cycle, for one NVIDIA Hopper card.
 
 The package proves PLONK proofs end to end (circuit -> trace ->
-naive_prover -> proof bytes -> verify) and runs the IVC chain of
-frontend/ivc.py (IVCState.init -> prove -> verify), on tensors of
+naive_prover -> proof bytes -> verify), reads proofs back from bytes,
+runs the IVC chain of frontend/ivc.py (IVCState.init -> prove -> verify)
+and signs and verifies batches of Schnorr signatures (schnorr.sign_batch,
+verify_batch), on tensors of
 canonical Montgomery residues (R = 2^256, the same R as halo_tpu.ops.ff, so
 Montgomery values match the JAX package bit for bit).  Field elements are
 held as 8 little-endian u32 words stored in int32, in a limb-major (8, ...)
-rows layout.  Six hand-written CUDA kernels (csrc/kernels.cu) carry the
+rows layout.  Nine hand-written CUDA kernels (csrc/kernels.cu) carry the
 device work on an NVIDIA Hopper card; each has a plain torch version
 beside it that CPU tensors take.
 

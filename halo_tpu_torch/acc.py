@@ -24,7 +24,7 @@ from .curves import Affine, CurveCfg, from_jac, jac_add, jac_mul, to_jac
 from .errors import AccumulationError
 from .pcdl import HPoly, Instance
 from .poseidon.sponge import Protocols, Sponge
-from .serde import Writer
+from .serde import Reader, Writer
 
 IVC_CONSTS = Path(__file__).resolve().parents[1] / "tests" / "fixtures" / "ivc_consts.json"
 
@@ -32,6 +32,10 @@ IVC_CONSTS = Path(__file__).resolve().parents[1] / "tests" / "fixtures" / "ivc_c
 @dataclass
 class Accumulator:
     q: Instance
+
+    @classmethod
+    def deserialize(cls, r: Reader, cfg: CurveCfg) -> "Accumulator":
+        return cls(q=Instance.deserialize(r, cfg))
 
     def serialize(self, w: Writer, cfg: CurveCfg) -> None:
         self.q.serialize(w, cfg)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops import ff
+from .ops import ecrows, ff
 
 
 def limbs16_to_rows(a, device="cpu") -> torch.Tensor:
@@ -35,13 +35,11 @@ def rows_to_limbs16(t: torch.Tensor) -> np.ndarray:
 def srs_rows(pp, n: int, device) -> torch.Tensor:
     """halo_tpu.srs.PublicParams -> the packed (16, n) device SRS table
     (x words in rows 0-7, y words in rows 8-15, Montgomery form)."""
-    from .srs import pack_points
-
     xs = ff.words_to_ints(np.ascontiguousarray(
         limbs16_to_rows(pp.gs_x[:n]).numpy().T))
     ys = ff.words_to_ints(np.ascontiguousarray(
         limbs16_to_rows(pp.gs_y[:n]).numpy().T))
-    return pack_points(pp.cfg, xs, ys, device)
+    return ecrows.pack_points(pp.cfg.p, xs, ys, device)
 
 
 def dev_polys_to_rows(dev_polys: dict, device) -> dict:

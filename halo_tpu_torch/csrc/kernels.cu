@@ -1,4 +1,4 @@
-// The port's eight CUDA kernels (sm_90a), over the field core in field.cuh.
+// The port's nine CUDA kernels (sm_90a), over the field core in field.cuh.
 //
 // Layout: limb-major rows.  A batch of N field elements is 8 rows of N
 // words (word k of lane i at k*N + i), so neighbouring threads read
@@ -26,6 +26,9 @@
 //   field_addsub   no Pallas kernel: the XLA fusions of halo_tpu/ops/ff.py
 //                  add :129 and sub :134 (the engine's add_jit/sub_jit),
 //                  two C entries, halo_field_add and halo_field_sub
+//   poseidon_permute  no Pallas kernel: halo_tpu/ops/poseidon.py:57
+//                  permute_batch, a lax.scan over ff.mont_mul's jnp
+//                  contractions that XLA fused into one dispatch
 //
 // Bounds on an H100: field_mul and ntt_butterfly move 96 bytes per
 // element for one field product, so they are memory-bound near 3.35 TB/s
@@ -97,6 +100,23 @@
 // 1.34 -> 1.31 ms at 1,025; G = 1 at 65,538 lanes stayed at 7.3 ms: its
 // local (spill) bytes fell from 72 to 8, and they were not what held it
 // back; the SMs' issue rate of the core's multiply-adds is.
+//
+// poseidon_permute runs the kimchi permutation (55 full rounds: x^7 on
+// the three words, the 3x3 MDS, the round constants) over N states, the
+// Schnorr batch's message hashes.  Its work is operations: 55 x (12 + 9)
+// = 1,155 products a state against 192 bytes in and out.  As a torch
+// composition it would be ~1,155 launches a permutation, so it is one
+// launch: one thread a state, the three words in registers for all 55
+// rounds.  The 9 MDS entries and 165 round constants (Montgomery form,
+// one (174, 8) device tensor per field) are copied into shared memory by
+// each block; every thread of a round reads the same constant, so each
+// read is a broadcast.  Blocks of 64 threads spread an 8,192-state batch
+// over 128 SMs; within a round the three sboxes are independent, which
+// is the lane's only parallelism.  With 2 warps an SM at that width a
+// lane's latency is the launch's time: 0.43 ms against a 0.083 ms bound
+// (19%), and 1.47 ms against 0.66 ms (45%) at 2^16 states (84 registers,
+// no spill; chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
+// A thread-group form (G threads a state, as ec_smul's) is the redesign.
 //
 // field_mul on canonical inputs is also the v1 canonical Montgomery
 // product of halo_tpu/ops/pallas_ff.py:_mont_mul_kernel :77.
@@ -376,6 +396,70 @@ __global__ void __launch_bounds__(kThreads) k_ec_pmadd_scan(uint32_t* __restrict
   }
 }
 
+constexpr int kPoseidonRounds = 55;
+constexpr int kPoseidonConsts = 9 + 3 * kPoseidonRounds;  // MDS row-major, then the rounds'
+constexpr int kPoseidonThreads = 64;
+
+__device__ __forceinline__ void load_fe_shared(Fe& r, const uint32_t* s) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) r.w[k] = s[k];
+}
+
+// x^7 = x^4 x^3 with x^2 = x x, x^3 = x^2 x, x^4 = x^2 x^2
+template <int F>
+__device__ __forceinline__ void fe_pow7(Fe& x) {
+  Fe x2, x3, x4;
+  halo::fe_mul<F>(x2, x, x);
+  halo::fe_mul<F>(x3, x2, x);
+  halo::fe_mul<F>(x4, x2, x2);
+  halo::fe_mul<F>(x, x4, x3);
+}
+
+// out[:, i] = permute(state[:, i]) for the (3, 8, n) canonical Montgomery
+// states (word k of state word c of lane i at (8 c + k) n + i); consts
+// holds kPoseidonConsts Montgomery elements of 8 words: the MDS row-major,
+// then the round constants, three a round.  Each round is the sbox on all
+// three words, then the MDS, then the constants (halo_tpu_torch/poseidon/
+// sponge.py permute).
+template <int F>
+__global__ void __launch_bounds__(kPoseidonThreads) k_poseidon_permute(
+    uint32_t* __restrict__ out, const uint32_t* __restrict__ state,
+    const uint32_t* __restrict__ consts, long long n) {
+  __shared__ uint32_t sc[kPoseidonConsts * 8];
+  for (int k = threadIdx.x; k < kPoseidonConsts * 8; k += blockDim.x) sc[k] = consts[k];
+  __syncthreads();
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Fe s[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) load_fe(s[c], state + 8 * c * n, n, i);
+#pragma unroll 1
+  for (int r = 0; r < kPoseidonRounds; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) fe_pow7<F>(s[c]);
+    const uint32_t* rc = sc + 8 * (9 + 3 * r);
+    Fe t[3];
+#pragma unroll
+    for (int row = 0; row < 3; ++row) {
+      Fe m, acc, prod;
+      load_fe_shared(m, sc + 8 * (3 * row));
+      halo::fe_mul<F>(acc, m, s[0]);
+#pragma unroll
+      for (int col = 1; col < 3; ++col) {
+        load_fe_shared(m, sc + 8 * (3 * row + col));
+        halo::fe_mul<F>(prod, m, s[col]);
+        halo::fe_add<F>(acc, acc, prod);
+      }
+      load_fe_shared(m, rc + 8 * row);
+      halo::fe_add<F>(t[row], acc, m);
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) s[c] = t[c];
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) store_fe(out + 8 * c * n, n, i, s[c]);
+}
+
 inline unsigned grid_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 template <int F, int G>
@@ -512,6 +596,19 @@ int halo_ec_pdbl(void* out, const void* P, long long n, int f, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// out and state (3, 8, n); consts (174, 8): the field's MDS and round
+// constants in Montgomery form (ops/poseidon.py builds it).
+int halo_poseidon_permute(void* out, const void* state, const void* consts, long long n, int f,
+                          void* stream) {
+  if (n > 0) {
+    auto k = f ? k_poseidon_permute<1> : k_poseidon_permute<0>;
+    const unsigned grid = (unsigned)((n + kPoseidonThreads - 1) / kPoseidonThreads);
+    k<<<grid, kPoseidonThreads, 0, (cudaStream_t)stream>>>(
+        (uint32_t*)out, (const uint32_t*)state, (const uint32_t*)consts, n);
+  }
+  return (int)cudaGetLastError();
+}
+
 // xy is the point-major (npts, 16) table (ops/mont.py passes it so).
 int halo_ec_pmadd_scan(void* out, const void* xy, const void* idx, const void* neg, long long R,
                        long long F, long long npts, int f, void* stream) {
@@ -544,9 +641,9 @@ int halo_ec_smul(void* out, const void* xy, const void* k, long long n, int xy_b
 
 // Registers and local memory (spill) bytes per thread of each kernel as
 // loaded (Fp instances; ec_padd, ec_pmadd_scan and ec_smul with G = 1, 2,
-// 4), into regs[0..14] and local[0..14]: field_mul, ntt_butterfly,
+// 4), into regs[0..15] and local[0..15]: field_mul, ntt_butterfly,
 // ec_padd G1 G2 G4, ec_pmadd_scan G1 G2 G4, ec_pmadd, ec_pdbl, ec_smul G1
-// G2 G4, field_add, field_sub.
+// G2 G4, field_add, field_sub, poseidon_permute.
 int halo_kernel_registers(int* regs, int* local) {
   const void* fns[] = {(const void*)k_field_mul<0>,        (const void*)k_ntt_butterfly<0>,
                        (const void*)k_ec_padd<0, 1>,       (const void*)k_ec_padd<0, 2>,
@@ -555,8 +652,8 @@ int halo_kernel_registers(int* regs, int* local) {
                        (const void*)k_ec_pmadd<0>,         (const void*)k_ec_pdbl<0>,
                        (const void*)k_ec_smul<0, 1>,       (const void*)k_ec_smul<0, 2>,
                        (const void*)k_ec_smul<0, 4>,       (const void*)k_field_addsub<0, false>,
-                       (const void*)k_field_addsub<0, true>};
-  for (int i = 0; i < 15; ++i) {
+                       (const void*)k_field_addsub<0, true>, (const void*)k_poseidon_permute<0>};
+  for (int i = 0; i < 16; ++i) {
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, fns[i]);
     if (err != cudaSuccess) return (int)err;

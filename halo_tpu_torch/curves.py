@@ -14,7 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-from .fields import FP_MOD, FQ_MOD, inv
+from .fields import FP_MOD, FQ_MOD, inv, sqrt
 
 Affine = Optional[Tuple[int, int]]  # None = point at infinity
 
@@ -43,6 +43,18 @@ VESTA = CurveCfg(name="vesta", p=FP_MOD, r=FQ_MOD)
 
 def cfg_of(name: str) -> CurveCfg:
     return PALLAS if name == "pallas" else VESTA
+
+
+def decompress_point(cfg: CurveCfg, x: int, y_is_negative: bool) -> Affine:
+    """The affine point with abscissa x and the given sign (arkworks'
+    compressed form): the smaller of y and p - y, or the larger when the
+    flag is set.  Raises ValueError if x is not on the curve."""
+    rhs = (x * x % cfg.p * x + cfg.b) % cfg.p
+    y = sqrt(rhs, cfg.p)
+    if y is None:
+        raise ValueError("x is not on the curve")
+    smaller, larger = (y, cfg.p - y) if y <= cfg.p - y else (cfg.p - y, y)
+    return (x, larger if y_is_negative else smaller)
 
 
 # ---------------- Jacobian arithmetic (X/Z^2, Y/Z^3) ---------------- #

@@ -1,5 +1,6 @@
-"""Typed verification errors (the port's copy of halo_tpu/errors.py, cut to
-what the port raises): a rejected proof raises a VerificationError."""
+"""Typed errors (the port's copy of halo_tpu/errors.py, cut to what the
+port raises): a rejected proof raises a VerificationError, malformed proof
+bytes a SerdeError."""
 
 from __future__ import annotations
 
@@ -18,3 +19,8 @@ class AccumulationError(VerificationError):
 
 class PlonkVerifyError(VerificationError):
     """PLONK verify_succinct failed: f(xi) != t(xi)*z_H(xi) (protocol.rs:441-444)."""
+
+
+class SerdeError(ValueError):
+    """Malformed bytes: early end, a non-canonical field element, a bad
+    option tag or point flags, an abscissa off the curve, trailing bytes."""

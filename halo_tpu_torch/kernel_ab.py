@@ -171,8 +171,8 @@ def worker(tree: Path, profile_steps: int, prove_reps: int) -> dict:
     from halo_tpu_torch import device as devmod
     from halo_tpu_torch import srs
     from halo_tpu_torch.curves import PALLAS
-    from halo_tpu_torch.fields import FQ_MOD
-    from halo_tpu_torch.ops import ecrows, kernels, mont
+    from halo_tpu_torch.fields import FQ_MOD, R256
+    from halo_tpu_torch.ops import ecrows, ff, kernels, mont
 
     measure = _load("measure")
     dev = devmod.cuda()
@@ -238,7 +238,8 @@ def worker(tree: Path, profile_steps: int, prove_reps: int) -> dict:
 
     # the SRS path of every tree: the scalar multiplication and a whole
     # derivation (Pallas: its base field is p)
-    g = srs.pack_points(PALLAS, [PALLAS.generator[0]], [PALLAS.generator[1]], dev)
+    r2 = ff.const_rows(R256 * R256 % PALLAS.p, dev)  # the generator in Montgomery rows
+    g = torch.cat([mont.field_mul(PALLAS.p, ff.to_rows([c], dev), r2) for c in PALLAS.generator])
     paths = {}
     for n, bcast in ((65538, True), (16386, True), (1025, False)):
         xy = g if bcast else table[:, :n].contiguous()

@@ -30,10 +30,16 @@ import random
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 132 * 64 * 1.98e9
 FE_MUL_OPS = 136  # 32x32-bit multiply-adds in one dense 8-word CIOS product
+# 32-bit ops of one field add: the 8-word add chain, the 8-word subtract of
+# p and the 8-word select; counted at the multiply-add rate, so work()
+# gives an add as FE_ADD_OPS / FE_MUL_OPS of a product
+FE_ADD_OPS = 24
 
 # ec_padd, ec_pmadd, ec_pdbl: (bytes, field products) per lane
 _POINT_WORK = {"ec_padd": (288, 14), "ec_pmadd": (256, 13), "ec_pdbl": (192, 9)}
 SMUL_STEPS = 255  # ec_smul: one ec_pdbl and one ec_pmadd per scalar bit
+POSEIDON_ROUNDS = 55  # poseidon_permute: 12 sbox products, 9 MDS products, 9 adds a round
+POSEIDON_CONSTS = 174  # the MDS and the round constants, 32 bytes each
 
 
 def work(name: str, lanes: int = 0, *, bcast: bool = False, half: int = 0, R: int = 0,
@@ -44,7 +50,9 @@ def work(name: str, lanes: int = 0, *, bcast: bool = False, half: int = 0, R: in
     ec_pmadd_scan: R steps x F lanes over an SRS table of npts points (a
     point is read once however often it is gathered); ec_smul: lanes,
     bcast (one base for every lane), the products of the ec_pdbl and
-    ec_pmadd launches it replaces; the point kernels: lanes."""
+    ec_pmadd launches it replaces; poseidon_permute: lanes (states), the
+    constants read once, its adds as fractions of a product (FE_ADD_OPS);
+    the point kernels: lanes."""
     if name == "field_mul":
         return (64 * lanes + 32 if bcast else 96 * lanes), lanes
     if name in ("field_add", "field_sub"):
@@ -57,6 +65,9 @@ def work(name: str, lanes: int = 0, *, bcast: bool = False, half: int = 0, R: in
     if name == "ec_smul":
         step = _POINT_WORK["ec_pdbl"][1] + _POINT_WORK["ec_pmadd"][1]
         return 32 * lanes + (64 if bcast else 64 * lanes) + 96 * lanes, SMUL_STEPS * step * lanes
+    if name == "poseidon_permute":
+        per_state = POSEIDON_ROUNDS * (12 + 9 + 9 * FE_ADD_OPS / FE_MUL_OPS)
+        return 192 * lanes + 32 * POSEIDON_CONSTS, per_state * lanes
     per_bytes, per_products = _POINT_WORK[name]
     return per_bytes * lanes, per_products * lanes
 

@@ -14,13 +14,16 @@ bit first (ecrows.py:60-80); both give the same group element.
 msm_naive_rows adds the products up with an ec_padd tree: an MSM that
 shares no code with the bucket MSM of ops/msm2.py, which makes it the
 reference the bucket MSM is checked against on the card.  to_affine_rows
-divides by Z on the device (mont.batch_inv: one host inversion).
+divides by Z on the device (mont.batch_inv: one host inversion);
+batch_to_affine does the same for host ints, and pack_points puts affine
+int points into Montgomery rows.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..fields import R256
 from . import ff, mont
 
 
@@ -69,23 +72,37 @@ def to_projective_ints(P: torch.Tensor) -> list[tuple[int, int, int]]:
     return list(zip(xs, ys, zs))
 
 
-def to_affine_ints(p_mod: int, P: torch.Tensor) -> list:
-    """(3, 8, n) projective Montgomery rows -> n affine int points (None for
-    the identity), with one modular inversion for the batch (Montgomery's
-    trick).  The Montgomery factor cancels in X/Z and Y/Z."""
-    X, Y, Z = zip(*to_projective_ints(P))
+def batch_to_affine(p_mod: int, pjs) -> list:
+    """(X, Y, Z) int triples -> affine int points (None where Z = 0), with
+    one modular inversion for the batch (Montgomery's trick)."""
     prefix = [1]
-    for z in Z:
+    for _, _, z in pjs:
         prefix.append(prefix[-1] * (z or 1) % p_mod)
     tinv = pow(prefix[-1], -1, p_mod)
-    out = [None] * len(Z)
-    for i in range(len(Z) - 1, -1, -1):
-        if Z[i] == 0:
+    out = [None] * len(pjs)
+    for i in range(len(pjs) - 1, -1, -1):
+        X, Y, Z = pjs[i]
+        if Z == 0:
             continue
         zinv = tinv * prefix[i] % p_mod
-        tinv = tinv * Z[i] % p_mod
-        out[i] = (X[i] * zinv % p_mod, Y[i] * zinv % p_mod)
+        tinv = tinv * Z % p_mod
+        out[i] = (X * zinv % p_mod, Y * zinv % p_mod)
     return out
+
+
+def to_affine_ints(p_mod: int, P: torch.Tensor) -> list:
+    """(3, 8, n) projective Montgomery rows -> n affine int points (None for
+    the identity), batch_to_affine on the host.  The Montgomery factor
+    cancels in X/Z and Y/Z."""
+    return batch_to_affine(p_mod, to_projective_ints(P))
+
+
+def pack_points(p_mod: int, xs: list[int], ys: list[int], device) -> torch.Tensor:
+    """Affine coordinates (canonical ints) -> (16, n) Montgomery rows."""
+    r2 = ff.const_rows(R256 * R256 % p_mod, device)
+    x = mont.field_mul(p_mod, ff.to_rows(xs, device), r2)
+    y = mont.field_mul(p_mod, ff.to_rows(ys, device), r2)
+    return torch.cat((x, y))
 
 
 def to_affine_rows(p_mod: int, P: torch.Tensor) -> torch.Tensor:

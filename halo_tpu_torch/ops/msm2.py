@@ -266,15 +266,13 @@ def msm2_srs(cfg: CurveCfg, scalars: list[int], device) -> Affine:
 
 def msm2(cfg: CurveCfg, scalars: list[int], points: list[Affine], device) -> Affine:
     """General MSM over explicit affine points (None = identity)."""
-    from ..srs import pack_points
-
     n_req = len(scalars)
     if n_req == 0:
         return None
     n = pad_pow2(n_req)
     gx, gy = cfg.p - 1, 2  # (-1, 2): a genuine point standing in for the identity
     pts = list(points[:n_req]) + [None] * (n - n_req)
-    xy = pack_points(cfg, [gx if q is None else q[0] for q in pts],
-                     [gy if q is None else q[1] for q in pts], device)
+    xy = ecrows.pack_points(cfg.p, [gx if q is None else q[0] for q in pts],
+                            [gy if q is None else q[1] for q in pts], device)
     ks = [0 if q is None else s % cfg.r for s, q in zip(list(scalars) + [0] * (n - n_req), pts)]
     return msm_multi(cfg, xy, ff.to_rows(ks, device)[:, None])[0]

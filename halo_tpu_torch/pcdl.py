@@ -21,7 +21,7 @@ from .errors import PcdlCheckError
 from .fields import inv
 from .ops import ipa, msm2
 from .poseidon.sponge import Protocols, Sponge
-from .serde import Writer
+from .serde import Reader, Writer
 
 # ---------------- data structures ---------------- #
 
@@ -34,6 +34,17 @@ class EvalProof:
     c: int
     C_bar: Optional[Affine] = None
     w_prime: Optional[int] = None
+
+    @classmethod
+    def deserialize(cls, r: Reader, cfg: CurveCfg) -> "EvalProof":
+        return cls(
+            Ls=r.vec(lambda: r.point_compressed(cfg)),
+            Rs=r.vec(lambda: r.point_compressed(cfg)),
+            U=r.point_compressed(cfg),
+            c=r.field(cfg.r),
+            C_bar=r.option(lambda: r.point_compressed(cfg)),
+            w_prime=r.option(lambda: r.field(cfg.r)),
+        )
 
     def serialize(self, w: Writer, cfg: CurveCfg) -> None:
         w.vec(self.Ls, lambda p: w.point_compressed(cfg, p))
@@ -78,6 +89,16 @@ class Instance:
     z: int
     v: int
     pi: EvalProof
+
+    @classmethod
+    def deserialize(cls, r: Reader, cfg: CurveCfg) -> "Instance":
+        return cls(
+            C=r.point_compressed(cfg),
+            d=r.u64(),
+            z=r.field(cfg.r),
+            v=r.field(cfg.r),
+            pi=EvalProof.deserialize(r, cfg),
+        )
 
     def serialize(self, w: Writer, cfg: CurveCfg) -> None:
         w.point_compressed(cfg, self.C)

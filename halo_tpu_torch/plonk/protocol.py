@@ -16,12 +16,12 @@ from dataclasses import dataclass
 from .. import acc as acc_mod
 from .. import pcdl
 from ..curves import Affine, CurveCfg, from_jac, jac_add, jac_mul, to_jac
-from ..errors import PlonkVerifyError
+from ..errors import PlonkVerifyError, SerdeError
 from ..fields import FP_MOD, inv
 from ..poseidon.constants import FP_MDS, FQ_MDS
 from ..poseidon.sponge import Protocols, Sponge
-from ..serde import Writer
-from .constants import R_POLYS, S_POLYS, T_POLYS
+from ..serde import Reader, Writer
+from .constants import Q_POLYS, R_POLYS, S_POLYS, T_POLYS, W_POLYS
 from .trace import PlonkCircuit, PlonkPublicInputs, PlonkWitness
 
 # Byte layout mirrors what arkworks CanonicalSerialize would derive for the
@@ -46,6 +46,20 @@ class PlonkProofEvals:
                   *self.sigmas, self.z, self.z_omega, *self.w_omegas):
             w.field(int(v))
 
+    @classmethod
+    def deserialize(cls, r: Reader, cfg: CurveCfg) -> "PlonkProofEvals":
+        m = cfg.r
+        return cls(
+            ws=[r.field(m) for _ in range(W_POLYS)],
+            rs=[r.field(m) for _ in range(R_POLYS)],
+            qs=[r.field(m) for _ in range(Q_POLYS)],
+            ts=[r.field(m) for _ in range(T_POLYS)],
+            ids=[r.field(m) for _ in range(S_POLYS)],
+            sigmas=[r.field(m) for _ in range(S_POLYS)],
+            z=r.field(m),
+            z_omega=r.field(m),
+            w_omegas=[r.field(m) for _ in range(3)],
+        )
 
 
 @dataclass
@@ -58,6 +72,13 @@ class PlonkProofCommitments:
         for p in (*self.ws, *self.ts, self.z):
             w.point_compressed(cfg, p)
 
+    @classmethod
+    def deserialize(cls, r: Reader, cfg: CurveCfg) -> "PlonkProofCommitments":
+        return cls(
+            ws=[r.point_compressed(cfg) for _ in range(W_POLYS)],
+            ts=[r.point_compressed(cfg) for _ in range(T_POLYS)],
+            z=r.point_compressed(cfg),
+        )
 
 
 @dataclass
@@ -69,6 +90,12 @@ class PlonkProofEvalProofs:
         self.r.serialize(w, cfg)
         self.r_omega.serialize(w, cfg)
 
+    @classmethod
+    def deserialize(cls, r: Reader, cfg: CurveCfg) -> "PlonkProofEvalProofs":
+        return cls(
+            r=pcdl.EvalProof.deserialize(r, cfg),
+            r_omega=pcdl.EvalProof.deserialize(r, cfg),
+        )
 
 
 @dataclass
@@ -88,6 +115,24 @@ class PlonkProof:
         w = Writer()
         self.serialize(w, cfg)
         return w.data()
+
+    @classmethod
+    def deserialize(cls, r: Reader, cfg: CurveCfg) -> "PlonkProof":
+        return cls(
+            vs=PlonkProofEvals.deserialize(r, cfg),
+            Cs=PlonkProofCommitments.deserialize(r, cfg),
+            pis=PlonkProofEvalProofs.deserialize(r, cfg),
+            acc_next=acc_mod.Accumulator.deserialize(r, cfg),
+        )
+
+    @classmethod
+    def from_bytes(cls, data: bytes, cfg: CurveCfg) -> "PlonkProof":
+        """Parse proof bytes; raises SerdeError on malformed or trailing bytes."""
+        r = Reader(data)
+        out = cls.deserialize(r, cfg)
+        if not r.done():
+            raise SerdeError(f"{len(data) - r.pos} trailing bytes after the proof")
+        return out
 
 
 def _scalar_mds(cfg: CurveCfg):

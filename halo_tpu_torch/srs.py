@@ -28,7 +28,6 @@ import torch
 
 from . import device as devmod
 from .curves import Affine, CurveCfg, cfg_of, ec_mul
-from .fields import R256
 from .ops import ecrows, ff, mont
 
 N_MAX = 1 << 20
@@ -94,7 +93,7 @@ def derive_srs(cfg_name: str, n: int, device, split: dict | None = None) -> Publ
     scalars = [_hash_scalar(cfg, i) for i in idx]
     mark()
     k = ff.to_rows(scalars, device)
-    g = pack_points(cfg, [cfg.generator[0]], [cfg.generator[1]], device)
+    g = ecrows.pack_points(cfg.p, [cfg.generator[0]], [cfg.generator[1]], device)
     mark()
     P = ecrows.scalar_mul_rows(cfg.p, g, k)
     mark()
@@ -135,14 +134,6 @@ def load_srs(cfg_name: str, n: int, device, split: dict | None = None) -> Public
         return pp
     return PublicParams(cfg=pp.cfg, S=pp.S, H=pp.H, D=n - 1, gs_x=pp.gs_x[:n], gs_y=pp.gs_y[:n],
                         table=pp.table[:, :n])
-
-
-def pack_points(cfg: CurveCfg, xs: list[int], ys: list[int], device) -> torch.Tensor:
-    """Affine coordinates (canonical ints) -> (16, n) Montgomery rows."""
-    r2 = ff.const_rows(R256 * R256 % cfg.p, device)
-    x = mont.field_mul(cfg.p, ff.to_rows(xs, device), r2)
-    y = mont.field_mul(cfg.p, ff.to_rows(ys, device), r2)
-    return torch.cat((x, y))
 
 
 @lru_cache(maxsize=8)

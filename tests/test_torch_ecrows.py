@@ -127,7 +127,7 @@ def _check_derive_srs_and_msm_naive_rows(cfg):
     assert mine.gs_y.tobytes() == ref.gs_y.tobytes()
     assert srs.load_sh(cfg.name) == (ref.S, ref.H)
     gs = ref.gs_ints(n)
-    packed = srs.pack_points(cfg, [q[0] for q in gs], [q[1] for q in gs], "cpu")
+    packed = ecrows.pack_points(cfg.p, [q[0] for q in gs], [q[1] for q in gs], "cpu")
     assert mine.table.equal(packed)
     assert srs.srs_pack(cfg.name, n, torch.device("cpu")).equal(packed)
     assert srs.srs_pack(cfg.name, 5, torch.device("cpu")).equal(packed[:, :5])
@@ -139,7 +139,7 @@ def _check_derive_srs_and_msm_naive_rows(cfg):
     rng = random.Random(cfg.p % 1000)
     pts = ref.gs_ints(13)
     ks = _edge_scalars(cfg) + [rng.randrange(cfg.r) for _ in range(4)]
-    xy = srs.pack_points(cfg, [q[0] for q in pts], [q[1] for q in pts], "cpu")
+    xy = ecrows.pack_points(cfg.p, [q[0] for q in pts], [q[1] for q in pts], "cpu")
     S = ecrows.scalar_mul_rows(cfg.p, xy, ff.to_rows(ks, "cpu"))
     ks = [k % (1 << 255) for k in ks]  # bit 255 is not read
     assert ecrows.to_affine_ints(cfg.p, S) == [ec_mul(cfg, q, k) for q, k in zip(pts, ks)]

@@ -1,7 +1,8 @@
-"""halo_tpu_torch.ops.mont: the kernel wrappers' plain versions against
-exact ints and halo_tpu.curves, the CUDA field constants against
-halo_tpu.fields, and (on a card only) each kernel against its plain
-version.
+"""halo_tpu_torch.ops.mont and ops.poseidon: the kernel wrappers' plain
+versions against exact ints, halo_tpu.curves and halo_tpu.poseidon, the
+CUDA field constants against halo_tpu.fields, and (on a card only) each
+kernel against its plain version and the Schnorr batch's verdicts on the
+card against the CPU's.
 
 Tolerance: zero.  Field values are compared as ints, points as affine
 ints (projective coordinates of equal points may differ by a scale).
@@ -17,7 +18,10 @@ import torch
 
 from halo_tpu.curves import PALLAS, VESTA, ec_add, ec_mul
 from halo_tpu.fields import FP_MOD, FQ_MOD
-from halo_tpu_torch.ops import ecrows, ff, kernels, mont
+from halo_tpu.poseidon.sponge import permute
+from halo_tpu_torch import schnorr
+from halo_tpu_torch.curves import PALLAS as T_PALLAS
+from halo_tpu_torch.ops import ecrows, ff, kernels, mont, poseidon
 
 # One intra-op thread per pytest-xdist worker: the workers share the cores,
 # and idle OpenMP threads spinning in each would starve the others.
@@ -181,6 +185,8 @@ def _check_wrappers_take_plain_version_only_on_cpu():
         mont.field_add(FP_MOD, a, a[:, :1])
     with pytest.raises(ValueError, match="unsupported device"):
         mont.field_sub(FQ_MOD, a[:, :1], a)
+    with pytest.raises(ValueError, match="unsupported device"):
+        poseidon.permute_batch(FQ_MOD, P)
 
 
 def _check_kernel_sources_not_built_on_import():
@@ -188,7 +194,19 @@ def _check_kernel_sources_not_built_on_import():
     # from the sources alone
     assert kernels.library_path().name.startswith("libhalo_kernels-")
     assert set(kernels.counts()) == {"field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan",
-                                     "ec_pmadd", "ec_pdbl", "ec_smul", "field_add", "field_sub"}
+                                     "ec_pmadd", "ec_pdbl", "ec_smul", "field_add", "field_sub",
+                                     "poseidon_permute"}
+
+
+def _check_poseidon_permute_plain():
+    """permute_ints on the CPU (the kernel's plain version) against
+    halo_tpu's host permute: tests/test_ops_poseidon.py's 9 seeded states
+    a field, the zero state first."""
+    rng = random.Random(5)
+    for m in MODS:
+        states = [[rng.randrange(m) for _ in range(3)] for _ in range(9)]
+        states[0] = [0, 0, 0]
+        assert poseidon.permute_ints(m, states, "cpu") == [permute(list(st), m) for st in states]
 
 
 # ---------------- on the card: each kernel against its plain version ----------------
@@ -326,6 +344,38 @@ def test_plain_versions():
     _check_field_cuh_constants()
     _check_wrappers_take_plain_version_only_on_cpu()
     _check_kernel_sources_not_built_on_import()
+    _check_poseidon_permute_plain()
+
+
+def _check_cuda_poseidon_permute(cuda_device, m):
+    """poseidon_permute against its plain version word for word at N = 1,
+    7 and 8195 (the zero state and p - 1 words first)."""
+    rng = random.Random(m % 983)
+    for n in (1, 7, 8195):
+        vals = [0, 0, 0, m - 1, m - 1, m - 1] + [rng.randrange(m) for _ in range(3 * n)]
+        st = ff.to_rows(vals[:3 * n], cuda_device).reshape(8, n, 3).permute(2, 0, 1).contiguous()
+        before = kernels.counts()["poseidon_permute"]
+        got = poseidon.permute_batch(m, st)
+        assert kernels.counts()["poseidon_permute"] == before + 1
+        assert got.equal(poseidon.poseidon_permute_plain(m, st)), n
+
+
+def _check_cuda_schnorr_batch(cuda_device):
+    """sign_batch and verify_batch on the card: the signatures verify on the
+    host, and the verdicts (with a flipped s, a changed message and a
+    swapped R) equal the CPU path's."""
+    rng = random.Random(1001)
+    cfg = T_PALLAS
+    sk, pk = schnorr.generate_keypair(cfg, rng)
+    msgs = [[rng.randrange(cfg.p) for _ in range(10)] for _ in range(6)]
+    sigs = schnorr.sign_batch(cfg, sk, msgs, cuda_device, rng=rng)
+    assert all(schnorr.verify(cfg, pk, m, s) for m, s in zip(msgs, sigs))
+    sigs[1] = schnorr.SchnorrSignature(r=sigs[1].r, s=(sigs[1].s + 1) % cfg.r)
+    msgs[3] = [(msgs[3][0] + 1) % cfg.p] + msgs[3][1:]
+    sigs[4] = schnorr.SchnorrSignature(r=sigs[0].r, s=sigs[4].s)
+    got = schnorr.verify_batch(cfg, pk, msgs, sigs, cuda_device)
+    assert got == schnorr.verify_batch(cfg, pk, msgs, sigs, "cpu")
+    assert got == [True, False, True, False, False, True]
 
 
 @pytest.mark.cuda
@@ -334,5 +384,7 @@ def test_cuda_kernels_match_plain(cuda_device):
         _check_cuda_field_mul(cuda_device, m)
         _check_cuda_field_add_sub(cuda_device, m)
         _check_cuda_ntt_butterfly(cuda_device, m)
+        _check_cuda_poseidon_permute(cuda_device, m)
     for cfg in CURVES:
         _check_cuda_ec_kernels(cuda_device, cfg)
+    _check_cuda_schnorr_batch(cuda_device)

@@ -1,6 +1,10 @@
 """halo_tpu_torch.ops.msm2 (the bucket MSM over the scan and padd
 kernels' plain versions) against halo_tpu.native.msm and
-halo_tpu.curves.msm_host, single and batched, at n <= 2^10.
+halo_tpu.curves.msm_host, single and batched, at n <= 2^10; and the
+Schnorr batch, whose verifier is a fixed-base MSM over the scan
+(halo_tpu_torch.schnorr, ops/schnorr_batch.py), against halo_tpu.schnorr:
+seeded keys and signatures, the batch hash, and the verdicts against the
+host verify on both curves, tampered signatures included.
 
 Tolerance: zero (affine points compared as ints).
 
@@ -14,10 +18,12 @@ import random
 import torch
 
 from halo_tpu import native
+from halo_tpu import schnorr as hschnorr
 from halo_tpu.curves import PALLAS, VESTA, ec_mul, msm_host
+from halo_tpu.ops import schnorr_batch as hschnorr_batch
 from halo_tpu.srs import load_srs
-from halo_tpu_torch import convert, srs
-from halo_tpu_torch.ops import ff, msm2
+from halo_tpu_torch import convert, schnorr, srs
+from halo_tpu_torch.ops import ecrows, ff, msm2, schnorr_batch
 
 # One intra-op thread per pytest-xdist worker: the workers share the cores,
 # and idle OpenMP threads spinning in each would starve the others.
@@ -66,7 +72,7 @@ def _check_msm_batched_with_point_maps(c_bits):
     cfg = PALLAS
     n_pts, n, k = 64, 32, 3
     table = _points(cfg, n_pts, 4)
-    xy = srs.pack_points(cfg, [q[0] for q in table], [q[1] for q in table], "cpu")
+    xy = ecrows.pack_points(cfg.p, [q[0] for q in table], [q[1] for q in table], "cpu")
     rng = random.Random(c_bits)
     pidx = torch.tensor([rng.sample(range(n_pts), n) for _ in range(k)])
     ks = [_scalars(cfg, n, 20 + i) for i in range(k)]
@@ -97,6 +103,33 @@ def _check_derived_srs_matches_load_srs(cfg):
     assert convert.srs_rows(ref, 16, "cpu").equal(srs.srs_pack(cfg.name, 16, torch.device("cpu")))
 
 
+def _check_schnorr_batch_matches_halo(cfg, n, tamper):
+    """Seeded generate_keypair/sign_batch equal halo_tpu.schnorr's (r and
+    s); the batch hash equals halo_tpu's; verify_batch's verdicts equal
+    halo_tpu.schnorr.verify's after the tamperings (bad s, bad message,
+    another signature's R: tests/test_schnorr_batch.py:43-56)."""
+    sk, pk = schnorr.generate_keypair(cfg, random.Random(1001))
+    assert (sk, pk) == hschnorr.generate_keypair(cfg, random.Random(1001))
+    rng = random.Random(9)
+    msgs = [[rng.randrange(cfg.p) for _ in range(10)] for _ in range(n)]
+    sigs = schnorr.sign_batch(cfg, sk, msgs, "cpu", rng=random.Random(9))
+    ref = hschnorr.sign_batch(cfg, sk, msgs, random.Random(9))
+    assert [(s.r, s.s) for s in sigs] == [(s.r, s.s) for s in ref]
+    r_pts = [s.r for s in sigs]
+    assert schnorr_batch.hash_message_batch(cfg, pk, r_pts, msgs, "cpu") == \
+        hschnorr_batch.hash_message_batch(cfg, pk, r_pts, msgs)
+    if "s" in tamper:
+        sigs[1] = schnorr.SchnorrSignature(r=sigs[1].r, s=(sigs[1].s + 1) % cfg.r)
+    if "message" in tamper:
+        msgs[3] = [(msgs[3][0] + 1) % cfg.p] + msgs[3][1:]
+    if "R" in tamper:
+        sigs[4] = schnorr.SchnorrSignature(r=sigs[0].r, s=sigs[4].s)
+    want = [hschnorr.verify(cfg, pk, m, hschnorr.SchnorrSignature(r=s.r, s=s.s))
+            for m, s in zip(msgs, sigs)]
+    assert schnorr.verify_batch(cfg, pk, msgs, sigs, "cpu") == want
+    return want
+
+
 def test_msm_matches_host():
     for cfg in CURVES:
         for n in (1, 5, 64, 300):
@@ -107,3 +140,8 @@ def test_msm_matches_host():
         _check_msm_batched_with_point_maps(c_bits)
     for cfg in CURVES:
         _check_derived_srs_matches_load_srs(cfg)
+    # Pallas (r > p: no shift of the challenge) with the three tamperings;
+    # Vesta (r < p: the challenge's >> 1) with one
+    assert _check_schnorr_batch_matches_halo(PALLAS, 6, ("s", "message", "R")) == \
+        [True, False, True, False, False, True]
+    assert _check_schnorr_batch_matches_halo(VESTA, 3, ("s",)) == [True, False, True]

@@ -1,6 +1,9 @@
 """The port's prover slice on the CPU: engine ops against host ints, the
 single and the pair IPA open against halo_tpu.pcdl, the golden proof
-fixtures (whose round 5 runs the pair open) byte for byte,
+fixtures (whose round 5 runs the pair open) byte for byte, the same
+fixtures read back by the port's PlonkProof.from_bytes (equal to
+halo_tpu's parse, re-serialized byte for byte, verified; malformed bytes
+raise), sqrt and decompress_point against halo_tpu's,
 and a 2^8-row Poseidon-chain proof byte-equal to halo_tpu's host prover
 built from the same TraceBuilder, whose device mirrors equal halo_tpu's
 through convert.py.
@@ -8,6 +11,7 @@ through convert.py.
 Tolerance: zero.  Everything is exact; proofs are compared as bytes.
 """
 
+import dataclasses
 import os
 import random
 from pathlib import Path
@@ -19,6 +23,8 @@ import torch
 import chip_smoke
 from halo_tpu import pcdl as hpcdl
 from halo_tpu.curves import PALLAS, VESTA
+from halo_tpu.curves import decompress_point as h_decompress_point
+from halo_tpu.fields import sqrt as h_sqrt
 from halo_tpu.hostpoly import divide_by_vanishing, poly_eval
 from halo_tpu.ops import ff as jff
 from halo_tpu.plonk import protocol as hprotocol
@@ -26,6 +32,9 @@ from halo_tpu.plonk import trace as htrace
 from halo_tpu.plonk.circuit import TRACE_CURVE
 from halo_tpu.serde import Writer
 from halo_tpu_torch import convert, measure, pcdl
+from halo_tpu_torch.curves import decompress_point
+from halo_tpu_torch.errors import SerdeError
+from halo_tpu_torch.fields import sqrt
 from halo_tpu_torch.ops import ipa
 from halo_tpu_torch.plonk import protocol, trace
 from halo_tpu_torch.plonk.engine import Engine
@@ -143,12 +152,67 @@ def _check_pcdl_rejects_hiding_and_bad_check():
 
 
 def _check_golden_proof_bytes():
+    """Returns each curve's (circuit, public inputs)."""
     traces = trace.trace_pair(chip_smoke.golden_builder(), CPU)
+    out = {}
     for which, tr, cfg in zip(("pallas", "vesta"), traces, (PALLAS, VESTA)):
         circuit, x, w = tr.consume()
         proof = protocol.naive_prover(cfg, circuit, x, w, CPU)
         assert proof.to_bytes(cfg) == (FIXDIR / f"proof_{which}.bin").read_bytes(), which
         protocol.verify(cfg, proof, circuit, x, CPU)
+        out[which] = circuit, x
+    return out
+
+
+def _check_golden_proofs_read_back(circuits):
+    """Both fixtures parse with the port, equal halo_tpu's parse field for
+    field, re-serialize to the same bytes and verify against the golden
+    circuits; malformed bytes raise SerdeError."""
+    for which, cfg in (("pallas", PALLAS), ("vesta", VESTA)):
+        raw = (FIXDIR / f"proof_{which}.bin").read_bytes()
+        proof = protocol.PlonkProof.from_bytes(raw, cfg)
+        ref = hprotocol.PlonkProof.from_bytes(raw, cfg)
+        assert dataclasses.asdict(proof) == dataclasses.asdict(ref), which
+        assert proof.to_bytes(cfg) == raw, which
+        circuit, x = circuits[which]
+        protocol.verify(cfg, proof, circuit, x, CPU)
+
+        # the first commitment (after the 78 evaluations) gets an x whose
+        # x^3 + 5 is a non-residue, keeping its flag bits
+        at = 78 * 32
+        x_bad = next(v for v in range(1, 100) if h_sqrt(v ** 3 + cfg.b, cfg.p) is None)
+        bad = bytearray(raw)
+        bad[at:at + 32] = x_bad.to_bytes(32, "little")
+        bad[at + 32] &= 0xC0
+        infinity_x = bytearray(raw)
+        infinity_x[at + 32] = 0x40  # infinity with the same nonzero x
+        p_as_x = bytearray(raw)
+        p_as_x[at:at + 33] = cfg.p.to_bytes(33, "little")
+        for malformed in (raw[:-1], raw[:at + 20], raw + b"\0", bytes(bad), bytes(infinity_x),
+                          bytes(p_as_x)):
+            with pytest.raises(SerdeError):
+                protocol.PlonkProof.from_bytes(malformed, cfg)
+
+
+def _check_sqrt_and_decompress_match_halo():
+    rng = random.Random(21)
+    for cfg in (PALLAS, VESTA):
+        for m in (cfg.p, cfg.r):
+            xs = [0, 1, 5, m - 1] + [rng.randrange(m) for _ in range(8)]
+            got = [sqrt(x, m) for x in xs]
+            assert got == [h_sqrt(x, m) for x in xs]
+            assert None in got and all(r is None or r * r % m == x for r, x in zip(got, xs))
+        xs = [cfg.generator[0], 0] + [rng.randrange(cfg.p) for _ in range(8)]
+        for x in xs:
+            for neg in (False, True):
+                try:
+                    want = h_decompress_point(cfg, x, neg)
+                except ValueError:
+                    with pytest.raises(ValueError):
+                        decompress_point(cfg, x, neg)
+                    continue
+                assert decompress_point(cfg, x, neg) == want
+        assert decompress_point(cfg, cfg.generator[0], False) == cfg.generator
 
 
 def test_engine_ipa_and_golden_proofs():
@@ -156,7 +220,8 @@ def test_engine_ipa_and_golden_proofs():
         _check_engine_ops_vs_host_ints(cfg)
     _check_ipa_opens_match_host_bytes()
     _check_pcdl_rejects_hiding_and_bad_check()
-    _check_golden_proof_bytes()
+    _check_golden_proofs_read_back(_check_golden_proof_bytes())
+    _check_sqrt_and_decompress_match_halo()
 
 
 # ---------------- a 2^8-row proof against the host prover ---------------- #
