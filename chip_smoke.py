@@ -30,7 +30,13 @@ phase falls back to the CPU or to a plain version:
               the edge scalars 0, 1, 2, r - 1, r, r + 1, r + 2, 2^255 - 1
               and 2^256 - 1 (bit 255 is not read).  The one-step forms
               ec_pmadd and ec_pdbl, which no path launches, run at the SRS
-              shape (2^log_rows + 2 lanes) with identity, P = Q and P = -Q lanes;
+              shape (2^log_rows + 2 lanes) with identity, P = Q and P = -Q lanes,
+              and so does ntt_butterfly, ntt_pass's one-stage form; ntt_pass
+              runs every pass of ntt.ntt's plans, each held against its
+              plain version, for a forward transform at (8, 16 * 2^log_rows)
+              (2^20 at the IVC shape), a forward (8, 3, 4 * 2^log_rows)
+              batch and an inverse at (8, 8 * 2^log_rows), each at most 3
+              launches, each timed whole and pass by pass against its bound;
               ec_padd on the v1 kernel's cases and field_mul on canonical
               inputs stand for the v1 kernels; field_mul's broadcast form
               is also timed at (8, 2^log_rows) x (8, 1), the IPA fold's
@@ -64,7 +70,8 @@ phase falls back to the CPU or to a plain version:
               scan), over each curve's fields; the kernels line reports
               the Pallas ones
   9. schnorr  poseidon_permute against its plain version at (3, 8, 8192)
-              on both fields, timed there and at 2^16 states; then the
+              and at 1, 7, 10, 11 and 8195 states (partly filled warps of
+              ten states) on both fields, timed at 8192 and 2^16 states; then the
               counted run on Pallas: sign_batch of 8192 seeded 10-field
               messages (one ec_smul launch, one hash batch of 8
               poseidon_permute launches), verify_batch of them (8 more,
@@ -81,8 +88,9 @@ phase falls back to the CPU or to a plain version:
 
 Each counted run (srs, plonk, ivc, schnorr) sets every kernel's launch count to 0
 just before it and reads the counts just after; a kernel of that path with
-no launch fails the run, and so does any launch of ec_pmadd or ec_pdbl,
-a derivation that launches ec_smul other than once, or any call of the
+no launch fails the run, and so does any launch of ec_pmadd, ec_pdbl or
+ntt_butterfly, an NTT (ntt.ntt) of more than 3 ntt_pass launches, a
+derivation that launches ec_smul other than once, or any call of the
 plain limb code's ff.canon on a CUDA tensor (the plain field add/sub used
 to block the host on every carry round; the line also gives the operand
 copies a wrapper made because a view's lanes were not contiguous).  The last three
@@ -104,7 +112,9 @@ of its bytes (each input read once, each output written once) over
 3.35 TB/s and its 32-bit multiply-adds (136 per field product; 24 ops
 per field add where a kernel's adds are counted, poseidon_permute) over
 16.7 T/s (132 SMs x 64 multiply-adds per clock x 1.98 GHz, the integer
-rate of an H100 SXM at its 700 W limit).
+rate of an H100 SXM at its 700 W limit).  ntt_pass's entry in the kernels
+line is one whole transform at (8, 2^20), its passes back to back, against
+the transform's bound (measure.work "ntt"), with each pass beside its own.
 """
 
 from __future__ import annotations
@@ -129,26 +139,30 @@ REPLACES = {
     "field_add": "halo_tpu/ops/ff.py:129",
     "field_sub": "halo_tpu/ops/ff.py:134",
     "poseidon_permute": "halo_tpu/ops/poseidon.py:57",
+    "ntt_pass": "halo_tpu/ops/pallas_mont.py:459",
 }
 # field_add and field_sub replace XLA fusions (the JAX engine's add_jit,
 # sub_jit), not Pallas kernels; poseidon_permute replaces permute_batch's
 # lax.scan, which XLA fused into one dispatch
 XLA_FUSIONS = ("field_add", "field_sub", "poseidon_permute")
 # ec_smul is the ladder of both point kernels and the loop around them
+# ntt_pass is several stages of the butterfly and the gather and stage loop
+# around them
 REPLACES_ALSO = {"ec_smul": ["halo_tpu/ops/pallas_mont.py:308", "halo_tpu/ops/pallas_ec.py:149",
-                             "halo_tpu/ops/ecrows.py:60"]}
+                             "halo_tpu/ops/ecrows.py:60"],
+                 "ntt_pass": ["halo_tpu/ops/ntt.py:211"]}
 # which counted run drives which kernels; the one-step forms ec_pmadd and
-# ec_pdbl run on no path
+# ec_pdbl, and ntt_pass's one-stage form ntt_butterfly, run on no path
 PATH_KERNELS = {
     "srs": ("field_mul", "ec_smul"),
-    "plonk": ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan", "field_add",
-              "field_sub"),
-    "ivc": ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan", "ec_smul", "field_add",
+    "plonk": ("field_mul", "ntt_pass", "ec_padd", "ec_pmadd_scan", "field_add", "field_sub"),
+    "ivc": ("field_mul", "ntt_pass", "ec_padd", "ec_pmadd_scan", "ec_smul", "field_add",
             "field_sub"),
     "schnorr": ("field_mul", "field_add", "field_sub", "ec_smul", "ec_pmadd_scan",
                 "poseidon_permute"),
 }
-OFF_PATH = ("ec_pmadd", "ec_pdbl")
+OFF_PATH = ("ec_pmadd", "ec_pdbl", "ntt_butterfly")
+NTT_MAX_PASSES = 3  # ntt_pass launches a transform of n <= 2^24
 # the counted run a kernel's `launches` comes from: the IVC step's, as
 # since the first slice, except for a kernel that runs only on a later path
 LAUNCHES_FROM = {"poseidon_permute": "schnorr"}
@@ -158,6 +172,7 @@ SCHNORR_N = 8192  # bench.py:381's batch
 SCHNORR_VESTA_N = 512
 SCHNORR_MSG = 10  # fields a message
 POSEIDON_WIDE = 1 << 16  # states: a poseidon_permute launch that fills the card
+POSEIDON_ODD = (1, 7, 10, 11, 8195)  # widths that end in a partly filled warp, or none
 
 
 def _phase(name: str, msg: str) -> None:
@@ -185,24 +200,32 @@ def golden_builder():
 
 def _counted(name: str, fn):
     """Run fn with every launch count set to 0 first; returns (fn's result,
-    the counts after).  Fails if a kernel of the path was not launched, or
-    if the plain limb code (ff.canon) ran on a CUDA tensor."""
-    from halo_tpu_torch.ops import ff, kernels
+    the counts after).  Fails if a kernel of the path was not launched, if
+    one off every path was, if an NTT took more than NTT_MAX_PASSES
+    ntt_pass launches, or if the plain limb code (ff.canon) ran on a CUDA
+    tensor."""
+    from halo_tpu_torch.ops import ff, kernels, ntt
 
-    canon = ff.canon
-    on_card = []
+    canon, transform = ff.canon, ntt.ntt
+    on_card, passes = [], []
 
     def counted_canon(m, v):
         if v.device.type == "cuda":
             on_card.append(tuple(v.shape))
         return canon(m, v)
 
+    def counted_ntt(*args, **kwargs):
+        before = kernels.LAUNCHES["ntt_pass"]
+        out = transform(*args, **kwargs)
+        passes.append(kernels.LAUNCHES["ntt_pass"] - before)
+        return out
+
     kernels.reset_counts()
-    ff.canon = counted_canon
+    ff.canon, ntt.ntt = counted_canon, counted_ntt
     try:
         out = fn()
     finally:
-        ff.canon = canon
+        ff.canon, ntt.ntt = canon, transform
     launches = kernels.counts()
     missing = [k for k in PATH_KERNELS[name] if launches[k] == 0]
     if missing:
@@ -213,8 +236,12 @@ def _counted(name: str, fn):
     if on_card:
         raise AssertionError(f"the {name} path ran ff.canon on {len(on_card)} CUDA tensors "
                              f"(first {on_card[0]})")
+    if passes and max(passes) > NTT_MAX_PASSES:
+        raise AssertionError(f"the {name} path ran an NTT in {max(passes)} ntt_pass launches")
+    ntts = f"; {len(passes)} NTTs in {sum(passes)} ntt_pass launches, at most " \
+           f"{max(passes)} a transform" if passes else ""
     _phase(name, f"ff.canon calls on CUDA tensors: 0; operand copies before a launch: "
-                 f"{json.dumps({k: v for k, v in kernels.copies().items() if v})}")
+                 f"{json.dumps({k: v for k, v in kernels.copies().items() if v})}{ntts}")
     return out, launches
 
 
@@ -339,6 +366,8 @@ def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
            lambda: mont.ntt_butterfly(m, a, tw, half, stride), 20,
            lambda: mont.ntt_butterfly_plain(m, a, tw, half, stride),
            measure.work("ntt_butterfly", big_n, half=half))
+    _ntt_vs_plain(m, out, torch.cat((a, b), 1), torch.cat((a, b[:, :4 * n]), 1).reshape(8, 3, 4 * n),
+                  b, cfg.name)
 
     # points: the PLONK path's SRS generators; the identity, equal and
     # opposite lanes a complete formula must get right come first
@@ -455,6 +484,74 @@ def _kernels_vs_plain(dev, cfg, log_rows: int, seed: int) -> dict:
                       f"and 1025 lanes, ec_smul at {lanes} (broadcast base), 1025 and 8449 "
                       f"lanes with the edge scalars, scans at {shapes} equal to plain")
     return out
+
+
+def _ntt_vs_plain(m: int, out: dict, x16, batch, x8, curve: str) -> None:
+    """ntt_pass against its plain version, pass by pass, through ntt.ntt's
+    plans: a forward transform of x16 (8, 16n), the forward (8, 3, 4n)
+    batch and the inverse of x8 (8, 8n); each plan at most NTT_MAX_PASSES
+    launches.  Each whole transform is timed (its passes back to back) and
+    held against the transform's bound (measure.work "ntt"), each pass of
+    x16's against its own; out["ntt_pass"] is x16's transform."""
+    from halo_tpu_torch import measure
+    from halo_tpu_torch.ops import ff, mont, ntt
+
+    cases = {}
+    for label, x, inverse in (("forward", x16, False), ("batch", batch, False),
+                              ("inverse", x8, True)):
+        nn = x.shape[-1]
+        log_n = nn.bit_length() - 1
+        tw, n_inv = ntt._plan_dev(m, log_n, inverse, x.device)
+        plan = ntt._passes(log_n)
+        if len(plan) > NTT_MAX_PASSES:
+            raise AssertionError(f"ntt: {len(plan)} passes at n = 2^{log_n}")
+        y, passes = x.reshape(8, -1), []
+        for i, (s0, j) in enumerate(plan):
+            scale = n_inv if i == len(plan) - 1 else None
+            got = mont.ntt_pass(m, y, tw, log_n, s0, j, scale)
+            if not got.equal(mont.ntt_pass_plain(m, y, tw, log_n, s0, j, scale)):
+                raise AssertionError(f"ntt_pass s0 {s0} j {j} at {tuple(x.shape)}: kernel "
+                                     f"and plain differ")
+            bound_ms, bound_by = measure.bound(*measure.work(
+                "ntt_pass", y.shape[1], s0=s0, j=j, bcast=scale is not None))
+            passes.append({"s0": s0, "j": j, "bound_ms": bound_ms, "bound_by": bound_by,
+                           "device_ms": measure.device_ms(
+                               lambda y=y, s0=s0, j=j, sc=scale: mont.ntt_pass(
+                                   m, y, tw, log_n, s0, j, sc), 10)})
+            y = got
+        got = ntt.ntt(m, x, inverse)
+        err = int((got.long() - y.reshape(x.shape).long()).abs().max())
+        if err != 0:
+            raise AssertionError(f"ntt.ntt at {tuple(x.shape)} differs from its passes")
+        if max(ff.from_rows(y[:, :: max(1, y.shape[1] // 4096)])) >= m:
+            raise AssertionError(f"ntt.ntt at {tuple(x.shape)}: output not canonical")
+        bound_ms, bound_by = measure.bound(*measure.work("ntt", y.shape[1], log_n=log_n,
+                                                         bcast=inverse))
+        dev_ms = measure.device_ms(lambda x=x, inv=inverse: ntt.ntt(m, x, inv), 10)
+        cases[label] = {"shape": list(x.shape), "inverse": inverse, "launches": len(plan),
+                        "max_abs_err": err,
+                        "device_ms": dev_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "passes": passes}
+        _phase("kernels", f"ntt_pass ({curve}), {label} transform {tuple(x.shape)}: every pass "
+                          f"equal to plain; {len(plan)} launches {[(p['s0'], p['j']) for p in passes]}, "
+                          f"{dev_ms:.4f} ms device, bound {bound_ms:.4f} ms ({bound_by}): "
+                          f"{bound_ms / dev_ms:.0%}; passes "
+                          + ", ".join(f"{p['device_ms']:.4f}/{p['bound_ms']:.4f}" for p in passes))
+    tw, _ = ntt._plan_dev(m, x16.shape[-1].bit_length() - 1, False, x16.device)
+
+    def plain():
+        y, log_n = x16, x16.shape[-1].bit_length() - 1
+        for s0, j in ntt._passes(log_n):
+            y = mont.ntt_pass_plain(m, y, tw, log_n, s0, j)
+        return y
+
+    fwd = cases["forward"]
+    ms = measure.host_paced_ms(lambda: ntt.ntt(m, x16), 10)
+    out["ntt_pass"] = {"max_abs_err": fwd["max_abs_err"], "ms": ms, "plain_ms": measure.host_paced_ms(plain, 1),
+                       "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+                       "library_ms": None, "device_ms": fwd["device_ms"],
+                       "shape": fwd["shape"], "timed": "one whole transform, its passes",
+                       "transforms": cases}
 
 
 def _addsub_edges(m: int, rng) -> tuple[list[int], list[int]]:
@@ -651,6 +748,11 @@ def _poseidon_vs_plain(dev, seed: int) -> dict:
             raise AssertionError(f"poseidon_permute and plain differ (max_abs_err {err})")
         if max(ff.from_rows(got.permute(1, 0, 2).reshape(8, -1)[:, ::97])) >= m:
             raise AssertionError("poseidon_permute: output not canonical")
+        # widths whose last warp is partly filled (ten states a warp)
+        for width in POSEIDON_ODD:
+            part = st[:, :, :width].contiguous()
+            if not poseidon.permute_batch(m, part).equal(poseidon.poseidon_permute_plain(m, part)):
+                raise AssertionError(f"poseidon_permute and plain differ at {width} states")
         if m != PALLAS.p:
             continue
         bound_ms, bound_by = measure.bound(*measure.work("poseidon_permute", SCHNORR_N))
@@ -665,7 +767,8 @@ def _poseidon_vs_plain(dev, seed: int) -> dict:
             "wide": {"shape": list(st.shape), "bound_ms": wide_bound,
                      "device_ms": measure.device_ms(lambda: poseidon.permute_batch(m, st), 5)}}
     r = out["poseidon_permute"]
-    _phase("schnorr", f"poseidon_permute equal to plain at (3, 8, {SCHNORR_N}) on both fields; "
+    _phase("schnorr", f"poseidon_permute equal to plain at (3, 8, {SCHNORR_N}) and at "
+                      f"{POSEIDON_ODD} states on both fields; "
                       f"pallas base field: kernel {r['ms']:.4f} ms host-paced ({r['device_ms']:.4f} "
                       f"ms device), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                       f"({r['bound_by']}); at (3, 8, {r['wide']['shape'][2]}): "

@@ -1,4 +1,4 @@
-// The port's nine CUDA kernels (sm_90a), over the field core in field.cuh.
+// The port's ten CUDA kernels (sm_90a), over the field core in field.cuh.
 //
 // Layout: limb-major rows.  A batch of N field elements is 8 rows of N
 // words (word k of lane i at k*N + i), so neighbouring threads read
@@ -11,7 +11,13 @@
 // What each replaces (halo_tpu/ops/pallas_mont.py):
 //   field_mul      _mm_kernel :256 and _mulc_kernel :474 (b broadcast),
 //                  with _canon_kernel :482 folded into the epilogue
-//   ntt_butterfly  _bfly_kernel :459, one radix-2 stage per launch
+//   ntt_butterfly  _bfly_kernel :459, one radix-2 stage per launch (on no
+//                  path: the counterpart of the TPU kernel, held against its
+//                  plain version)
+//   ntt_pass       _bfly_kernel :459 together with the gather and the stage
+//                  loop of halo_tpu/ops/ntt.py:_ntt_rows_fn :211-245: up to
+//                  10 stages a launch in shared memory, at most 3 launches
+//                  a transform of n <= 2^24
 //   ec_padd        _padd_kernel :261 (and, on canonical inputs, the v1
 //                  halo_tpu/ops/pallas_ec.py:_ec_add_kernel :110)
 //   ec_pmadd       _pmadd_kernel :308 (mixed add, unpacked affine operand,
@@ -30,9 +36,17 @@
 //                  permute_batch, a lax.scan over ff.mont_mul's jnp
 //                  contractions that XLA fused into one dispatch
 //
-// Bounds on an H100: field_mul and ntt_butterfly move 96 bytes per
-// element for one field product, so they are memory-bound near 3.35 TB/s
-// at large N; they are one thread per lane.  field_addsub moves the same
+// Bounds on an H100: field_mul moves 96 bytes per element for one field
+// product and ntt_butterfly 64 bytes for half a product, so they are
+// memory-bound near 3.35 TB/s at large N; they are one thread per lane.
+// A whole transform is not: log2(n) / 2 products an element against 64
+// bytes in and out (n = 2^20: 10 products, 0.085 ms of multiply-adds
+// against 0.012 ms of bytes at (8, 2^20)), so ntt_pass keeps a tile in
+// shared memory for as many stages as it holds (10 in the first pass,
+// 7 in a later one) and crosses device memory once a pass instead of
+// once a stage; each butterfly is one product, one add and one subtract
+// on a tile's words, its twiddle one 32-byte load through L1 (an
+// element-major copy of the table).  field_addsub moves the same
 // 96 bytes for no product at all: one thread per lane, each operand read
 // in place through its word stride (a lane-contiguous view such as
 // cs[:, :h] needs no copy) or as one broadcast element.  ec_pmadd (11 products, 256
@@ -106,17 +120,18 @@
 // Schnorr batch's message hashes.  Its work is operations: 55 x (12 + 9)
 // = 1,155 products a state against 192 bytes in and out.  As a torch
 // composition it would be ~1,155 launches a permutation, so it is one
-// launch: one thread a state, the three words in registers for all 55
-// rounds.  The 9 MDS entries and 165 round constants (Montgomery form,
-// one (174, 8) device tensor per field) are copied into shared memory by
-// each block; every thread of a round reads the same constant, so each
-// read is a broadcast.  Blocks of 64 threads spread an 8,192-state batch
-// over 128 SMs; within a round the three sboxes are independent, which
-// is the lane's only parallelism.  With 2 warps an SM at that width a
-// lane's latency is the launch's time: 0.43 ms against a 0.083 ms bound
-// (19%), and 1.47 ms against 0.66 ms (45%) at 2^16 states (84 registers,
-// no spill; chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
-// A thread-group form (G threads a state, as ec_smul's) is the redesign.
+// launch, the state in registers for all 55 rounds.  The 9 MDS entries and
+// 165 round constants (Montgomery form, one (174, 8) device tensor per
+// field) are copied into shared memory by each block.  At the batch's
+// 8,192 states one thread a state left 2 warps an SM, so one state's
+// latency was the launch's time: 0.43 ms against a 0.083 ms bound (19%;
+// 1.47 ms against 0.66 ms at 2^16 states; 84 registers; chip_smoke.py on
+// an NVIDIA H100 80GB HBM3 at 700 W; PERF.md).  So three threads of a warp
+// own a state, one word each (ten states a warp, two lanes repeating
+// others): a round's 21 products become 7 a thread (its sbox, its MDS
+// row) and two 8-word exchanges by __shfl_sync, three times the warps
+// at the same width.  A group of 4 would split the 9 MDS products no
+// better (3 rows) and leave a quarter of the lanes idle, not 2 of 32.
 //
 // field_mul on canonical inputs is also the v1 canonical Montgomery
 // product of halo_tpu/ops/pallas_ff.py:_mont_mul_kernel :77.
@@ -252,6 +267,102 @@ __global__ void k_ntt_butterfly(uint32_t* __restrict__ y, const uint32_t* __rest
   halo::fe_sub<F>(d, e, p);
   store_fe(y, m, ie, s);
   store_fe(y, m, io, d);
+}
+
+constexpr int kNttTileLog = 10;  // a block of ntt_pass holds 2^10 elements: 32 KB
+constexpr int kNttColsLog = 3;   // a later pass's tile: 8 consecutive low offsets a row
+
+// Radix-2 DIT stages s0 + 1 .. s0 + j of k transforms of size n = 2^log_n,
+// the (8, M = k n) rows x, into y.  Stage s pairs the positions whose
+// index differs in bit s - 1, e below o: (e, o) <- (e + w o, e - w o) with
+// w = W[(e mod 2^(s-1)) n / 2^s], W the twiddle table w^i R (i < n/2),
+// element-major, one twiddle a 32-byte row (tw[2i], tw[2i + 1]).  With
+// s0 = 0 position i is read from x at bit-reverse(i); with scale non-null
+// every output is multiplied by the one element scale[0..7] (n^-1 R, the
+// inverse's last pass).
+//
+// A block owns a tile of E = C 2^j elements of one transform, C = 2^c_log:
+// rows t < 2^j of C consecutive low offsets c, at positions base + c +
+// t 2^s0 (base's low s0 bits are the offset b0 of column 0).  Stages s0 + 1
+// .. s0 + j pair rows within a column, so the tile runs them all in shared
+// memory, [word][element] like the rows in device memory, with one
+// __syncthreads() a stage, and is read once and written once.  With s0 > 0,
+// C = min(8, 2^s0): eight columns make each 32-byte sector of a word row
+// whole, so the strided rows still load and store coalesced.  The first
+// pass (s0 = 0, C = 1) owns 2^j consecutive positions; tile g of a
+// transform is the one at rev(g) 2^j, whose input rows rev_j(t)
+// 2^(log_n - j) + g lie next to those of tiles g +- 1, so neighbouring
+// blocks share each sector.
+template <int F>
+__global__ void __launch_bounds__(kThreads) k_ntt_pass(uint32_t* __restrict__ y,
+                                                       const uint32_t* __restrict__ x,
+                                                       const uint4* __restrict__ tw,
+                                                       const uint32_t* __restrict__ scale,
+                                                       long long M, int log_n, int s0, int j) {
+  __shared__ uint32_t sm[8 << kNttTileLog];
+  const int c_log = s0 < kNttColsLog ? s0 : kNttColsLog;
+  const int e_log = c_log + j;
+  const int E = 1 << e_log;
+  const int C = 1 << c_log;
+  const long long n = 1LL << log_n;
+  const long long tiles = n >> e_log;  // a transform's tiles
+  const long long poly = (long long)blockIdx.x / tiles;
+  const long long g = (long long)blockIdx.x - poly * tiles;
+  long long base;
+  if (s0 == 0) {
+    base = log_n == j ? 0 : (long long)(__brev((unsigned)g) >> (32 - (log_n - j))) << j;
+  } else {
+    const long long across = (1LL << s0) >> c_log;  // tiles across the low offsets
+    base = ((g / across) << (s0 + j)) + ((g % across) << c_log);
+  }
+  const long long b0 = base & ((1LL << s0) - 1);
+  const uint32_t* xp = x + poly * n;
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    const long long pos = base + (e & (C - 1)) + ((long long)(e >> c_log) << s0);
+    const long long src = s0 == 0 ? (long long)(__brev((unsigned)pos) >> (32 - log_n)) : pos;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) sm[(k << e_log) + e] = xp[k * M + src];
+  }
+  __syncthreads();
+  for (int l = 0; l < j; ++l) {
+    const long long tw_step = n >> (s0 + 1 + l);
+    for (int bf = threadIdx.x; bf < E / 2; bf += blockDim.x) {
+      const int c = bf & (C - 1), q = bf >> c_log;
+      const int t_lo = q & ((1 << l) - 1);
+      const int ie = ((((q >> l) << (l + 1)) + t_lo) << c_log) + c;
+      const int io = ie + (C << l);
+      const long long ti = (b0 + c + ((long long)t_lo << s0)) * tw_step;
+      const uint4 w0 = __ldg(tw + 2 * ti), w1 = __ldg(tw + 2 * ti + 1);
+      Fe a, b, w, p;
+      w.w[0] = w0.x, w.w[1] = w0.y, w.w[2] = w0.z, w.w[3] = w0.w;
+      w.w[4] = w1.x, w.w[5] = w1.y, w.w[6] = w1.z, w.w[7] = w1.w;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        a.w[k] = sm[(k << e_log) + ie];
+        b.w[k] = sm[(k << e_log) + io];
+      }
+      halo::fe_mul<F>(p, b, w);
+      halo::fe_add<F>(b, a, p);
+      halo::fe_sub<F>(a, a, p);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        sm[(k << e_log) + ie] = b.w[k];
+        sm[(k << e_log) + io] = a.w[k];
+      }
+    }
+    __syncthreads();
+  }
+  Fe sc;
+  if (scale != nullptr) load_fe(sc, scale, 1, 0);
+  uint32_t* yp = y + poly * n;
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    const long long pos = base + (e & (C - 1)) + ((long long)(e >> c_log) << s0);
+    Fe v;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v.w[k] = sm[(k << e_log) + e];
+    if (scale != nullptr) halo::fe_mul<F>(v, v, sc);
+    store_fe(yp, M, pos, v);
+  }
 }
 
 template <int F, int G>
@@ -399,6 +510,8 @@ __global__ void __launch_bounds__(kThreads) k_ec_pmadd_scan(uint32_t* __restrict
 constexpr int kPoseidonRounds = 55;
 constexpr int kPoseidonConsts = 9 + 3 * kPoseidonRounds;  // MDS row-major, then the rounds'
 constexpr int kPoseidonThreads = 64;
+constexpr int kPoseidonLanes = 30;  // lanes of a warp that own a state word: 10 states
+constexpr int kPoseidonStates = kPoseidonLanes / 3;
 
 __device__ __forceinline__ void load_fe_shared(Fe& r, const uint32_t* s) {
 #pragma unroll
@@ -421,6 +534,16 @@ __device__ __forceinline__ void fe_pow7(Fe& x) {
 // then the round constants, three a round.  Each round is the sbox on all
 // three words, then the MDS, then the constants (halo_tpu_torch/poseidon/
 // sponge.py permute).
+//
+// Three threads own a state, thread c its word c: each round it raises its
+// word to the 7th power, receives the other two words' powers by 16
+// __shfl_sync, and computes row c of the MDS (its row held in registers,
+// in the order of the words it receives) plus its round constant: 7
+// products a thread a round in place of 21.  Lanes 0-29 of a warp hold
+// states 10 w .. 10 w + 9; lanes 30 and 31 repeat lanes 27 and 28 (state
+// 10 w + 9, roles 0 and 1) and store nothing, and a state index past n
+// repeats state n - 1 and stores nothing, so every lane of a warp with a
+// live state takes part in every shuffle.
 template <int F>
 __global__ void __launch_bounds__(kPoseidonThreads) k_poseidon_permute(
     uint32_t* __restrict__ out, const uint32_t* __restrict__ state,
@@ -428,36 +551,39 @@ __global__ void __launch_bounds__(kPoseidonThreads) k_poseidon_permute(
   __shared__ uint32_t sc[kPoseidonConsts * 8];
   for (int k = threadIdx.x; k < kPoseidonConsts * 8; k += blockDim.x) sc[k] = consts[k];
   __syncthreads();
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Fe s[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) load_fe(s[c], state + 8 * c * n, n, i);
+  const int lane = threadIdx.x & 31;
+  const long long first = (((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5) * kPoseidonStates;
+  if (first >= n) return;  // the whole warp
+  const int slot = lane < kPoseidonLanes ? lane / 3 : kPoseidonStates - 1;
+  const int role = lane < kPoseidonLanes ? lane - 3 * slot : lane - kPoseidonLanes;
+  long long i = first + slot;
+  const bool live = lane < kPoseidonLanes && i < n;
+  if (i >= n) i = n - 1;
+  const int r1 = role == 2 ? 0 : role + 1, r2 = role == 0 ? 2 : role - 1;
+  const int src1 = 3 * slot + r1, src2 = 3 * slot + r2;
+  Fe m0, m1, m2, s;
+  load_fe_shared(m0, sc + 8 * (3 * role + role));
+  load_fe_shared(m1, sc + 8 * (3 * role + r1));
+  load_fe_shared(m2, sc + 8 * (3 * role + r2));
+  load_fe(s, state + 8 * role * n, n, i);
 #pragma unroll 1
   for (int r = 0; r < kPoseidonRounds; ++r) {
+    fe_pow7<F>(s);
+    Fe a, b, acc, prod;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) fe_pow7<F>(s[c]);
-    const uint32_t* rc = sc + 8 * (9 + 3 * r);
-    Fe t[3];
-#pragma unroll
-    for (int row = 0; row < 3; ++row) {
-      Fe m, acc, prod;
-      load_fe_shared(m, sc + 8 * (3 * row));
-      halo::fe_mul<F>(acc, m, s[0]);
-#pragma unroll
-      for (int col = 1; col < 3; ++col) {
-        load_fe_shared(m, sc + 8 * (3 * row + col));
-        halo::fe_mul<F>(prod, m, s[col]);
-        halo::fe_add<F>(acc, acc, prod);
-      }
-      load_fe_shared(m, rc + 8 * row);
-      halo::fe_add<F>(t[row], acc, m);
+    for (int k = 0; k < 8; ++k) {
+      a.w[k] = __shfl_sync(0xffffffffu, s.w[k], src1);
+      b.w[k] = __shfl_sync(0xffffffffu, s.w[k], src2);
     }
-#pragma unroll
-    for (int c = 0; c < 3; ++c) s[c] = t[c];
+    halo::fe_mul<F>(acc, m0, s);
+    halo::fe_mul<F>(prod, m1, a);
+    halo::fe_add<F>(acc, acc, prod);
+    halo::fe_mul<F>(prod, m2, b);
+    halo::fe_add<F>(acc, acc, prod);
+    load_fe_shared(prod, sc + 8 * (9 + 3 * r + role));
+    halo::fe_add<F>(s, acc, prod);
   }
-#pragma unroll
-  for (int c = 0; c < 3; ++c) store_fe(out + 8 * c * n, n, i, s[c]);
+  if (live) store_fe(out + 8 * role * n, n, i, s);
 }
 
 inline unsigned grid_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
@@ -566,6 +692,27 @@ int halo_ntt_butterfly(void* y, const void* x, const void* tw, long long m, long
   return (int)cudaGetLastError();
 }
 
+// y, x (8, M), M a multiple of n = 2^log_n; tw the (n / 2, 8) twiddle
+// table; scale one element (8 words) or null.  A plan ntt_pass cannot
+// run (a tile above 2^kNttTileLog elements, stages past log_n) returns
+// cudaErrorInvalidValue and launches nothing.
+int halo_ntt_pass(void* y, const void* x, const void* tw, const void* scale, long long M,
+                  int log_n, int s0, int j, int f, void* stream) {
+  const int c_log = s0 < kNttColsLog ? s0 : kNttColsLog;
+  if (log_n < 1 || log_n > 30 || s0 < 0 || j < 1 || s0 + j > log_n ||
+      c_log + j > kNttTileLog || M <= 0 || (M & ((1LL << log_n) - 1)) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long blocks = M >> (c_log + j);
+  const int half = 1 << (c_log + j - 1);  // butterflies a stage
+  const int threads = half < 32 ? 32 : half > kThreads ? kThreads : half;
+  auto k = f ? k_ntt_pass<1> : k_ntt_pass<0>;
+  k<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)y, (const uint32_t*)x, (const uint4*)tw, (const uint32_t*)scale, M, log_n, s0,
+      j);
+  return (int)cudaGetLastError();
+}
+
 int halo_ec_padd(void* out, const void* P, const void* Q, long long n, int f, void* stream) {
   if (n > 0) {
     const int g = group_for(n);
@@ -602,7 +749,8 @@ int halo_poseidon_permute(void* out, const void* state, const void* consts, long
                           void* stream) {
   if (n > 0) {
     auto k = f ? k_poseidon_permute<1> : k_poseidon_permute<0>;
-    const unsigned grid = (unsigned)((n + kPoseidonThreads - 1) / kPoseidonThreads);
+    const long long warps = (n + kPoseidonStates - 1) / kPoseidonStates;
+    const unsigned grid = (unsigned)((32 * warps + kPoseidonThreads - 1) / kPoseidonThreads);
     k<<<grid, kPoseidonThreads, 0, (cudaStream_t)stream>>>(
         (uint32_t*)out, (const uint32_t*)state, (const uint32_t*)consts, n);
   }
@@ -641,9 +789,9 @@ int halo_ec_smul(void* out, const void* xy, const void* k, long long n, int xy_b
 
 // Registers and local memory (spill) bytes per thread of each kernel as
 // loaded (Fp instances; ec_padd, ec_pmadd_scan and ec_smul with G = 1, 2,
-// 4), into regs[0..15] and local[0..15]: field_mul, ntt_butterfly,
+// 4), into regs[0..16] and local[0..16]: field_mul, ntt_butterfly,
 // ec_padd G1 G2 G4, ec_pmadd_scan G1 G2 G4, ec_pmadd, ec_pdbl, ec_smul G1
-// G2 G4, field_add, field_sub, poseidon_permute.
+// G2 G4, field_add, field_sub, poseidon_permute, ntt_pass.
 int halo_kernel_registers(int* regs, int* local) {
   const void* fns[] = {(const void*)k_field_mul<0>,        (const void*)k_ntt_butterfly<0>,
                        (const void*)k_ec_padd<0, 1>,       (const void*)k_ec_padd<0, 2>,
@@ -652,8 +800,9 @@ int halo_kernel_registers(int* regs, int* local) {
                        (const void*)k_ec_pmadd<0>,         (const void*)k_ec_pdbl<0>,
                        (const void*)k_ec_smul<0, 1>,       (const void*)k_ec_smul<0, 2>,
                        (const void*)k_ec_smul<0, 4>,       (const void*)k_field_addsub<0, false>,
-                       (const void*)k_field_addsub<0, true>, (const void*)k_poseidon_permute<0>};
-  for (int i = 0; i < 16; ++i) {
+                       (const void*)k_field_addsub<0, true>, (const void*)k_poseidon_permute<0>,
+                       (const void*)k_ntt_pass<0>};
+  for (int i = 0; i < 17; ++i) {
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, fns[i]);
     if (err != cudaSuccess) return (int)err;

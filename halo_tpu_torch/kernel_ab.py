@@ -12,9 +12,12 @@ seeded inputs:
 
   - each kernel the tree has at the shapes the main paths launch it at
     (the 2^14 proof, the IVC step at 2^16, the IPA rounds, a batched
-    commitment, the SRS derivations), as host-paced time and as device
-    time per launch (measure.py's timers, which chip_smoke.py uses too);
-    field_add and field_sub only where the tree has them;
+    commitment, the SRS derivations, the Schnorr batch's hash), as
+    host-paced time and as device time per launch (measure.py's timers,
+    which chip_smoke.py uses too); field_add, field_sub and
+    poseidon_permute only where the tree has them; and whole NTTs (ntt.ntt
+    at the IVC step's 16n and 8n and a 3-poly batch), on whichever
+    kernels the tree runs them;
   - the paths every tree has: ecrows.scalar_mul_rows at the SRS shapes
     (65,538 and 16,386 lanes, one broadcast base) and at 1,025 lanes with
     per-lane bases, host-paced and as traced device time
@@ -27,6 +30,8 @@ seeded inputs:
   - one 2^14-row proof and --prove-reps warm ones (measure.poseidon_chain,
     chip_smoke.py's circuit): trace and prove seconds, and the proof's
     round5.open+accumulate seconds (profile_ivc.phase_times);
+  - where the tree has the Schnorr batch: sig/s of 7 warm verify_batch
+    calls of 8,192 seeded signatures on Pallas;
   - with --profile-steps N: this checkout's profile_ivc.py, run against
     the tree's package: IVCState.init, N steps, the last one traced
     (wall, device busy, idle share, each kernel's device time, torch's
@@ -52,6 +57,7 @@ import argparse
 import collections
 import importlib.util
 import json
+import random
 import re
 import shutil
 import statistics
@@ -63,6 +69,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent  # this checkout's halo_tpu_torch/
 SEED = 11
 PROVE_LOG_ROWS = 14
+SCHNORR_N = 8192  # chip_smoke.py's batch (bench.py:381)
+SCHNORR_CALLS = 7
 
 
 def _shapes():
@@ -76,7 +84,12 @@ def _shapes():
            ("field_sub 8x2^19 x 1 bcast (1 - x)", "field_sub", {"n": 1 << 19, "bcast": True}),
            ("field_add 8x2^15 (IPA fold, first round)", "field_add", {"n": 1 << 15}),
            ("ntt_butterfly 8x2^19 half 1024", "ntt_butterfly", {"n": 1 << 19, "half": 1024}),
-           ("ntt_butterfly 8x2^17 half 1024", "ntt_butterfly", {"n": 1 << 17, "half": 1024})]
+           ("ntt_butterfly 8x2^17 half 1024", "ntt_butterfly", {"n": 1 << 17, "half": 1024}),
+           ("ntt transform 8x2^20 (16n at 2^16)", "ntt", {"n": 1 << 20, "k": 1}),
+           ("ntt transform 8x3x2^18 batch", "ntt", {"n": 1 << 18, "k": 3}),
+           ("intt transform 8x2^19 (8n at 2^16)", "ntt", {"n": 1 << 19, "k": 1, "inverse": True}),
+           ("poseidon_permute 3x8x8192 (Schnorr batch)", "poseidon_permute", {"n": 8192}),
+           ("poseidon_permute 3x8x2^16", "poseidon_permute", {"n": 1 << 16})]
     for n in (66082, 16512, 2048, 1024, 512, 64, 2):
         out.append((f"ec_padd {n} lanes", "ec_padd", {"n": n}))
     for n in (65538, 16386):
@@ -125,6 +138,8 @@ def _work(measure, name: str, key: str, npts: int) -> tuple[int, int]:
         return measure.work(name, int(w[0]), bcast=len(w) > 1)
     if name == "ntt_butterfly":
         return measure.work(name, int(w[0]), half=int(w[2]))
+    if name == "ntt_pass":
+        return measure.work(name, int(w[0]), s0=int(w[4]), j=int(w[6]), bcast=len(w) > 7)
     if name == "ec_pmadd_scan":
         return measure.work(name, R=int(w[1]), F=int(w[3]), npts=npts)
     if name == "ec_smul":
@@ -172,7 +187,12 @@ def worker(tree: Path, profile_steps: int, prove_reps: int) -> dict:
     from halo_tpu_torch import srs
     from halo_tpu_torch.curves import PALLAS
     from halo_tpu_torch.fields import FQ_MOD, R256
-    from halo_tpu_torch.ops import ecrows, ff, kernels, mont
+    from halo_tpu_torch.ops import ecrows, ff, kernels, mont, ntt
+
+    try:
+        from halo_tpu_torch.ops import poseidon
+    except ImportError:  # a tree from before the Schnorr batch
+        poseidon = None
 
     measure = _load("measure")
     dev = devmod.cuda()
@@ -195,9 +215,19 @@ def worker(tree: Path, profile_steps: int, prove_reps: int) -> dict:
     table = torch.cat((fe(npts), fe(npts)))
     times = {}
     for label, name, a in _shapes():
-        if not hasattr(mont, name):
+        if name == "ntt":  # a whole transform, whichever kernels the tree runs it on
+            x = fe(a["k"], a["n"])
+            fn = lambda x=x, inv=a.get("inverse", False): ntt.ntt(p, x, inv)  # noqa: E731
+            iters = 5
+        elif name == "poseidon_permute":
+            if poseidon is None:
+                continue
+            st = fe(3 * a["n"]).reshape(8, 3, a["n"]).permute(1, 0, 2).contiguous()
+            fn = lambda st=st: poseidon.permute_batch(p, st)  # noqa: E731
+            iters = 5
+        elif not hasattr(mont, name):
             continue
-        if name in ("field_mul", "field_add", "field_sub", "ntt_butterfly"):
+        elif name in ("field_mul", "field_add", "field_sub", "ntt_butterfly"):
             x = fe(a["n"])
             if name != "ntt_butterfly":
                 y = fe(1) if a.get("bcast") else fe(a["n"])
@@ -280,6 +310,28 @@ def worker(tree: Path, profile_steps: int, prove_reps: int) -> dict:
     out["prove"] = {"log_rows": PROVE_LOG_ROWS, "first": runs[0], "warm": runs[1],
                     "warm_runs": runs[1:]}
 
+    # the Schnorr batch, where the tree has it: warm verify_batch of
+    # SCHNORR_N seeded signatures (Pallas, 10-field messages), after one
+    # call that builds the key's tables
+    try:
+        from halo_tpu_torch import schnorr
+    except ImportError:
+        schnorr = None
+    if schnorr is not None and hasattr(schnorr, "verify_batch"):
+        rng = random.Random(SEED)
+        sk, pk = schnorr.generate_keypair(PALLAS, rng)
+        msgs = [[rng.randrange(PALLAS.p) for _ in range(10)] for _ in range(SCHNORR_N)]
+        sigs = schnorr.sign_batch(PALLAS, sk, msgs, dev, rng=rng)
+        walls = []
+        for _ in range(1 + SCHNORR_CALLS):
+            t0 = time.perf_counter()
+            if not all(schnorr.verify_batch(PALLAS, pk, msgs, sigs, dev)):
+                raise AssertionError("verify_batch rejected a fresh signature")
+            walls.append(time.perf_counter() - t0)
+        rates = [SCHNORR_N / w for w in walls[1:]]
+        out["schnorr"] = {"n": SCHNORR_N, "sig_per_s": rates,
+                          "median_sig_per_s": statistics.median(rates)}
+
     if profile_steps:
         out["profile"] = profile_ivc.profile_step(dev, profile_steps)
     return out
@@ -321,6 +373,10 @@ def main() -> int:
             extra = (f"; untraced steps s {[round(w, 3) for w in pr.get('untraced_steps_s', [])]}, "
                      f"traced step wall {pr['wall_s']:.3f} s, busy {pr['device_busy_s']:.4f} s, "
                      f"idle {pr['idle_share']:.4f}")
+        if "schnorr" in r:
+            extra += (f"; verify_batch of {r['schnorr']['n']}: median "
+                      f"{r['schnorr']['median_sig_per_s']:.1f} sig/s of "
+                      f"{[round(v, 1) for v in r['schnorr']['sig_per_s']]}")
         warm = r["prove"]["warm_runs"]
         print(f"[{len(results)}] {tree}: {r['card']}; build {r['build_s']:.2f} s; warm 2^14 "
               f"trace s {[round(w['trace_s'], 3) for w in warm]}, prove s "

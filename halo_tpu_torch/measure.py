@@ -43,10 +43,19 @@ POSEIDON_CONSTS = 174  # the MDS and the round constants, 32 bytes each
 
 
 def work(name: str, lanes: int = 0, *, bcast: bool = False, half: int = 0, R: int = 0,
-         F: int = 0, npts: int = 0) -> tuple[int, int]:
+         F: int = 0, npts: int = 0, log_n: int = 0, s0: int = 0, j: int = 0) -> tuple[int, int]:
     """(bytes, field products) of one launch.  field_mul: lanes, bcast (b
     is one element); field_add, field_sub: lanes, bcast (one operand is
     one element), no product; ntt_butterfly: lanes of the (8, lanes) input, half;
+    ntt_pass: lanes, s0, j (stages s0 + 1 .. s0 + j), bcast (the n^-1
+    product of an inverse's last pass), the twiddles of its last stage
+    read once (the earlier stages' are among them), the products of its
+    stages but those by W[0] = 1 (stage s: n/2 - n/2^s a transform);
+    "ntt", a whole transform of (8, lanes) = k of size 2^log_n, not one
+    launch: its input read once, its output written once, the n/2
+    twiddles once, n/2 log n - (n - 1) products a transform (stages 1 ..
+    log_n as ntt_pass counts them) and, with bcast (an inverse), one more
+    an element;
     ec_pmadd_scan: R steps x F lanes over an SRS table of npts points (a
     point is read once however often it is gathered); ec_smul: lanes,
     bcast (one base for every lane), the products of the ec_pdbl and
@@ -59,6 +68,12 @@ def work(name: str, lanes: int = 0, *, bcast: bool = False, half: int = 0, R: in
         return (64 * lanes + 32 if bcast else 96 * lanes), 0
     if name == "ntt_butterfly":
         return 64 * lanes + 32 * half, lanes // 2
+    if name in ("ntt_pass", "ntt"):
+        if name == "ntt":
+            s0, j = 0, log_n
+        products = sum(lanes // 2 - (lanes >> s) for s in range(s0 + 1, s0 + j + 1))
+        return (64 * lanes + 32 * (1 << (s0 + j - 1)) + (32 if bcast else 0),
+                products + (lanes if bcast else 0))
     if name == "ec_pmadd_scan":
         rf = R * F
         return 64 * min(npts, rf) + 5 * rf + 96 * rf, 13 * rf

@@ -36,7 +36,7 @@ SOURCES = (CSRC / "field.cuh", CSRC / "kernels.cu")
 BUILD_DIR = _PKG.parent / "build" / "halo_tpu_torch"
 
 NAMES = ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan", "ec_pmadd", "ec_pdbl",
-         "ec_smul", "field_add", "field_sub", "poseidon_permute")
+         "ec_smul", "field_add", "field_sub", "poseidon_permute", "ntt_pass")
 LAUNCHES: dict[str, int] = {name: 0 for name in NAMES}
 COPIES: dict[str, int] = {name: 0 for name in NAMES}
 
@@ -52,6 +52,7 @@ _SIGNATURES = {
     "halo_field_add": [_vp, _vp, _vp, _ll, _ll, _int, _ll, _int, _int, _vp],
     "halo_field_sub": [_vp, _vp, _vp, _ll, _ll, _int, _ll, _int, _int, _vp],
     "halo_poseidon_permute": [_vp, _vp, _vp, _ll, _int, _vp],
+    "halo_ntt_pass": [_vp, _vp, _vp, _vp, _ll, _int, _int, _int, _int, _vp],
     "halo_kernel_registers": [_vp, _vp],
 }
 
@@ -123,7 +124,7 @@ def build() -> ctypes.CDLL:
 REGISTER_KEYS = ("field_mul", "ntt_butterfly", "ec_padd G1", "ec_padd G2", "ec_padd G4",
                  "ec_pmadd_scan G1", "ec_pmadd_scan G2", "ec_pmadd_scan G4", "ec_pmadd",
                  "ec_pdbl", "ec_smul G1", "ec_smul G2", "ec_smul G4", "field_add", "field_sub",
-                 "poseidon_permute")
+                 "poseidon_permute", "ntt_pass")
 
 
 def _resources() -> tuple[dict[str, int], dict[str, int]]:

@@ -11,6 +11,8 @@ kernel against its plain version on the card.
 | field_mul      | k_field_mul              | _mm_kernel :256 (mm_rows), _mulc_kernel :474    |
 |                |                          | (mulc_rows: b broadcast), _canon_kernel :482    |
 | ntt_butterfly  | k_ntt_butterfly          | _bfly_kernel :459 (bfly_rows)                   |
+| ntt_pass       | k_ntt_pass               | _bfly_kernel :459 with the gather and the stage |
+|                |                          | loop around it (halo_tpu/ops/ntt.py:211-245)    |
 | ec_padd        | k_ec_padd                | _padd_kernel :261 (padd_rows)                   |
 | ec_pmadd_scan  | k_ec_pmadd_scan          | _pmadd_pack_kernel :355 and the lax.scan around |
 |                |                          | it (halo_tpu/ops/msm2.py:398-417)               |
@@ -27,7 +29,8 @@ On canonical inputs field_mul, ec_padd and ec_pdbl also compute what the
 v1 kernels computed: halo_tpu/ops/pallas_ff.py:_mont_mul_kernel :77 and
 halo_tpu/ops/pallas_ec.py:_ec_add_kernel :110, _ec_double_kernel :149
 (ec_smul's doubling step too).  ec_pmadd and ec_pdbl are the one-step
-forms of ec_smul's ladder; no path launches them.
+forms of ec_smul's ladder, ntt_butterfly the one-stage form of ntt_pass;
+no path launches them.
 
 scan_mul and batch_inv are composites of field_mul with no kernel of
 their own: the engine's grand product and batch inverse, and the
@@ -41,6 +44,8 @@ formula level into one multiplication, which gives the same values.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
 
 import torch
 
@@ -178,6 +183,66 @@ def ntt_butterfly(m: int, x: torch.Tensor, tw: torch.Tensor, half: int,
     y = torch.empty_like(x)
     kernels.launch("ntt_butterfly", y.data_ptr(), x.data_ptr(), tw.data_ptr(), M, half,
                    tw.shape[1], tw_stride, ff.field_id(m))
+    return y
+
+
+# ---------------- ntt_pass ---------------- #
+
+NTT_TILE_LOG = 10  # csrc/kernels.cu kNttTileLog: the elements a block of ntt_pass holds
+NTT_COLS_LOG = 3  # kNttColsLog: a later pass's tile is 8 low offsets x 2^j rows
+
+
+@lru_cache(maxsize=64)
+def bit_reverse(log_n: int, device: torch.device) -> torch.Tensor:
+    """The bit-reversal permutation of range(2^log_n), as int64 indices."""
+    i = torch.arange(1 << log_n, dtype=torch.int64)
+    rev = torch.zeros_like(i)
+    for b in range(log_n):
+        rev |= ((i >> b) & 1) << (log_n - 1 - b)
+    return rev.to(device)
+
+
+def ntt_pass_plain(m: int, x: torch.Tensor, tw: torch.Tensor, log_n: int, s0: int, j: int,
+                   scale: torch.Tensor | None = None) -> torch.Tensor:
+    n = 1 << log_n
+    if s0 == 0:
+        x = x.reshape(NWORDS, -1, n)[:, :, bit_reverse(log_n, x.device)].reshape(NWORDS, -1)
+    for s in range(s0 + 1, s0 + j + 1):
+        x = ntt_butterfly_plain(m, x, tw.t(), 1 << (s - 1), n >> s)
+    return x if scale is None else field_mul_plain(m, x, scale)
+
+
+def ntt_pass(m: int, x: torch.Tensor, tw: torch.Tensor, log_n: int, s0: int, j: int,
+             scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Radix-2 DIT stages s0 + 1 .. s0 + j of the size-2^log_n transforms
+    laid one after another along the (8, k * 2^log_n) rows x.  Stage s is
+    ntt_butterfly with half = 2^(s-1) and w_j = tw[j * n / 2^s]; tw is the
+    (n/2, 8) element-major twiddle table (one twiddle's 8 words
+    contiguous).  With s0 = 0 the pass first reads each transform in
+    bit-reversed order; with scale (one element, (8, 1)) it ends in
+    field_mul by it.  One launch holds a tile of min(8, 2^s0) * 2^j <=
+    2^NTT_TILE_LOG elements; a pass past that, or past stage log_n,
+    raises."""
+    n = 1 << log_n
+    c_log = min(s0, NTT_COLS_LOG)
+    if x.dim() != 2 or x.shape[0] != NWORDS or x.shape[1] % n or log_n < 1 \
+            or tw.shape != (n // 2, NWORDS) or s0 < 0 or j < 1 or s0 + j > log_n \
+            or c_log + j > NTT_TILE_LOG \
+            or (scale is not None and scale.shape != (NWORDS, 1)):
+        raise ValueError(f"bad NTT pass: x {tuple(x.shape)}, tw {tuple(tw.shape)}, "
+                         f"log_n={log_n}, s0={s0}, j={j}")
+    if _is_cpu(x):
+        return ntt_pass_plain(m, x, tw, log_n, s0, j, scale)
+    x, tw = x.contiguous(), tw.contiguous()
+    if scale is None:
+        kernels.check_cuda(x, tw)
+    else:
+        scale = scale.contiguous()
+        kernels.check_cuda(x, tw, scale)
+    y = torch.empty_like(x)
+    kernels.launch("ntt_pass", y.data_ptr(), x.data_ptr(), tw.data_ptr(),
+                   None if scale is None else scale.data_ptr(), x.shape[1], log_n, s0, j,
+                   ff.field_id(m))
     return y
 
 

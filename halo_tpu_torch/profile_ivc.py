@@ -16,7 +16,8 @@ cudaMemcpyAsync and aten::any (HOST_CALLS: the launches, the host's
 waits for the card, the copies, and the any() of a carry loop).  During
 the traced step the kernel wrappers of ops/mont.py are wrapped here to
 count launches by shape (field_mul, field_add, field_sub: lanes and
-broadcast; ntt_butterfly: lanes and half; ec_padd, ec_pmadd, ec_pdbl:
+broadcast; ntt_butterfly: lanes and half; ntt_pass: lanes, log_n, s0, j
+and the inverse's scale; ec_padd, ec_pmadd, ec_pdbl:
 lanes; ec_pmadd_scan: R x F; ec_smul: lanes and broadcast); the wrappers
 themselves are not touched.  Each step's prover phases per curve
 (round5.open+accumulate: the IPA opens and the accumulation) come from
@@ -43,7 +44,7 @@ from .frontend.ivc import IVCState, _params_from_reference_fixture
 from .ops import mont
 
 KERNELS = ("field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan", "ec_pmadd", "ec_pdbl",
-           "ec_smul", "field_add", "field_sub")
+           "ec_smul", "field_add", "field_sub", "ntt_pass")
 HOST_CALLS = ("cudaLaunchKernel", "cudaStreamSynchronize", "cudaMemcpyAsync", "aten::any")
 _PHASE_LINE = re.compile(r"^(.*): ([^:\s]+): ([0-9.]+)s$")
 
@@ -90,6 +91,9 @@ def _shape_key(name: str, args) -> str:
         return f"{n}{' bcast' if min(a.shape[1:].numel(), b.shape[1:].numel()) == 1 else ''}"
     if name == "ntt_butterfly":
         return f"{args[1].shape[1]} half {args[3]}"
+    if name == "ntt_pass":
+        scale = " scale" if len(args) > 6 and args[6] is not None else ""
+        return f"{args[1].shape[1]} log_n {args[3]} s0 {args[4]} j {args[5]}{scale}"
     if name == "ec_pmadd_scan":
         R, F = args[2].shape
         return f"R {R} F {F}"

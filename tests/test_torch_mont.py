@@ -17,11 +17,11 @@ import pytest
 import torch
 
 from halo_tpu.curves import PALLAS, VESTA, ec_add, ec_mul
-from halo_tpu.fields import FP_MOD, FQ_MOD
+from halo_tpu.fields import FP_MOD, FQ_MOD, two_adic_root_of_unity
 from halo_tpu.poseidon.sponge import permute
 from halo_tpu_torch import schnorr
 from halo_tpu_torch.curves import PALLAS as T_PALLAS
-from halo_tpu_torch.ops import ecrows, ff, kernels, mont, poseidon
+from halo_tpu_torch.ops import ecrows, ff, kernels, mont, ntt, poseidon
 
 # One intra-op thread per pytest-xdist worker: the workers share the cores,
 # and idle OpenMP threads spinning in each would starve the others.
@@ -104,6 +104,56 @@ def _check_ntt_butterfly_plain(m):
             assert y[blk * 2 * half + j + half] == (e - t) % m
 
 
+def _dit_stages_host(m, v, log_n, s0, j, inverse):
+    """Radix-2 DIT stages s0 + 1 .. s0 + j of each size-2^log_n transform
+    along v, on ints: the input read bit-reversed when s0 = 0; stage s
+    multiplies by powers of w^(n/2^s), w halo_tpu's 2^log_n root (its
+    inverse for an inverse).  Montgomery words are R times values, and the
+    butterflies and twiddles act on both alike, so v may be the words."""
+    n = 1 << log_n
+    w = two_adic_root_of_unity(m, log_n)
+    w = pow(w, -1, m) if inverse else w
+    out = []
+    for base in range(0, len(v), n):
+        a = v[base:base + n]
+        if s0 == 0:
+            a = [a[int(f"{i:0{log_n}b}"[::-1], 2)] for i in range(n)]
+        for s in range(s0 + 1, s0 + j + 1):
+            h, ws = 1 << (s - 1), pow(w, n >> s, m)
+            for b in range(0, n, 2 * h):
+                wk = 1
+                for k in range(h):
+                    e, t = a[b + k], a[b + k + h] * wk % m
+                    a[b + k], a[b + k + h] = (e + t) % m, (e - t) % m
+                    wk = wk * ws % m
+        out += a
+    return out
+
+
+def _check_ntt_pass_plain(m):
+    """ntt_pass (on the CPU: its plain version) against the radix-2 stages
+    on ints, pass by pass over a (8, 3 * 2^6) batch of an inverse split
+    (2, 3, 1), the n^-1 of its last pass included; plans the kernel
+    cannot run raise."""
+    log_n, n = 6, 64
+    v = _vals(m, 3 * n, 5)
+    x = ff.to_rows(v, "cpu")
+    tw, n_inv = ntt._plan_dev(m, log_n, True, torch.device("cpu"))
+    got, want = x, v
+    for s0, j in ((0, 2), (2, 3), (5, 1)):
+        got = mont.ntt_pass(m, got, tw, log_n, s0, j, n_inv if s0 == 5 else None)
+        want = _dit_stages_host(m, want, log_n, s0, j, True)
+        if s0 == 5:
+            want = [a * pow(n, -1, m) % m for a in want]
+        assert ff.from_rows(got) == want, (s0, j)
+    for s0, j in ((0, 7), (5, 2)):  # past stage log_n
+        with pytest.raises(ValueError):
+            mont.ntt_pass(m, x, tw, log_n, s0, j)
+    big = torch.zeros((8, 1 << 11), dtype=torch.int32)
+    with pytest.raises(ValueError):  # a tile of 8 x 2^8 elements > 2^10
+        mont.ntt_pass(m, big, big[:, :1 << 10].t(), 11, 3, 8)
+
+
 def _check_ec_padd_plain_edge_lanes(cfg):
     P, Q = _edge_pairs(cfg)
     S = mont.ec_padd(cfg.p, _proj_rows(cfg, P), _proj_rows(cfg, Q))
@@ -174,6 +224,8 @@ def _check_wrappers_take_plain_version_only_on_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         mont.ntt_butterfly(FP_MOD, a, a, 1, 1)
     with pytest.raises(ValueError, match="unsupported device"):
+        mont.ntt_pass(FP_MOD, a, torch.zeros((2, 8), dtype=torch.int32, device="meta"), 2, 0, 2)
+    with pytest.raises(ValueError, match="unsupported device"):
         mont.ec_padd(FQ_MOD, P, P)
     with pytest.raises(ValueError, match="unsupported device"):
         mont.ec_pmadd(FQ_MOD, P, torch.zeros((16, 4), dtype=torch.int32, device="meta"))
@@ -195,7 +247,7 @@ def _check_kernel_sources_not_built_on_import():
     assert kernels.library_path().name.startswith("libhalo_kernels-")
     assert set(kernels.counts()) == {"field_mul", "ntt_butterfly", "ec_padd", "ec_pmadd_scan",
                                      "ec_pmadd", "ec_pdbl", "ec_smul", "field_add", "field_sub",
-                                     "poseidon_permute"}
+                                     "poseidon_permute", "ntt_pass"}
 
 
 def _check_poseidon_permute_plain():
@@ -279,6 +331,45 @@ def _check_cuda_ntt_butterfly(cuda_device, m):
         assert got.equal(mont.ntt_butterfly_plain(m, x, tw, half, stride))
 
 
+def _check_cuda_ntt_pass(cuda_device, m):
+    """ntt_pass against its plain version word for word, pass by pass:
+    through ntt.ntt's plans for n = 2^1 .. 2^20 (at most 3 launches a
+    transform, later passes of 1 to 7 stages), and launched directly over
+    the plan _passes(12, 5) (later passes of 2 stages); a k = 3 batch and
+    an inverse at each size; no ntt_butterfly launch; a plan the kernel
+    cannot hold is refused by its C entry."""
+    g = torch.Generator(device=cuda_device).manual_seed(m % 1009)
+    for log_n, k, forced in [(L, 3 if L in (6, 12, 18) else 1, None) for L in range(1, 21)] \
+            + [(12, 2, ntt._passes(12, 5))]:
+        n = 1 << log_n
+        x = torch.randint(-2**31, 2**31 - 1, (8, k * n), generator=g, device=cuda_device,
+                          dtype=torch.int32)
+        x[7] &= 0x3FFFFFFF  # canonical: below 2^254 < m
+        for inverse in (False, True):
+            tw, n_inv = ntt._plan_dev(m, log_n, inverse, x.device)
+            plan = forced or ntt._passes(log_n)
+            scales = [None] * (len(plan) - 1) + [n_inv]
+            before = kernels.counts()
+            if forced is None:
+                assert len(plan) <= 3, plan
+                got = ntt.ntt(m, x.reshape(8, k, n), inverse).reshape(8, k * n)
+            else:
+                got = x
+                for (s0, j), scale in zip(plan, scales):
+                    got = mont.ntt_pass(m, got, tw, log_n, s0, j, scale)
+            after = kernels.counts()
+            assert after["ntt_pass"] - before["ntt_pass"] == len(plan)
+            assert after["ntt_butterfly"] == before["ntt_butterfly"]
+            y = x
+            for (s0, j), scale in zip(plan, scales):
+                y = mont.ntt_pass_plain(m, y, tw, log_n, s0, j, scale)
+            assert got.equal(y), (log_n, k, plan, inverse)
+    x = torch.zeros((8, 1 << 11), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="ntt_pass failed to launch"):
+        kernels.launch("ntt_pass", x.data_ptr(), x.data_ptr(), x.data_ptr(), None, 1 << 11, 11,
+                       3, 8, ff.field_id(m))
+
+
 def _check_cuda_ec_kernels(cuda_device, cfg):
     P, Q = _edge_pairs(cfg)
     Pr, Qr = _proj_rows(cfg, P, cuda_device), _proj_rows(cfg, Q, cuda_device)
@@ -337,6 +428,7 @@ def test_plain_versions():
     for m in MODS:
         _check_field_mul_plain_and_broadcast(m)
         _check_ntt_butterfly_plain(m)
+        _check_ntt_pass_plain(m)
     for cfg in CURVES:
         _check_ec_padd_plain_edge_lanes(cfg)
         _check_ec_pmadd_scan_plain(cfg)
@@ -349,9 +441,10 @@ def test_plain_versions():
 
 def _check_cuda_poseidon_permute(cuda_device, m):
     """poseidon_permute against its plain version word for word at N = 1,
-    7 and 8195 (the zero state and p - 1 words first)."""
+    7, 10 (one warp's states), 11 (a state in a second warp) and 8195
+    (the zero state and p - 1 words first)."""
     rng = random.Random(m % 983)
-    for n in (1, 7, 8195):
+    for n in (1, 7, 10, 11, 8195):
         vals = [0, 0, 0, m - 1, m - 1, m - 1] + [rng.randrange(m) for _ in range(3 * n)]
         st = ff.to_rows(vals[:3 * n], cuda_device).reshape(8, n, 3).permute(2, 0, 1).contiguous()
         before = kernels.counts()["poseidon_permute"]
@@ -384,6 +477,7 @@ def test_cuda_kernels_match_plain(cuda_device):
         _check_cuda_field_mul(cuda_device, m)
         _check_cuda_field_add_sub(cuda_device, m)
         _check_cuda_ntt_butterfly(cuda_device, m)
+        _check_cuda_ntt_pass(cuda_device, m)
         _check_cuda_poseidon_permute(cuda_device, m)
     for cfg in CURVES:
         _check_cuda_ec_kernels(cuda_device, cfg)

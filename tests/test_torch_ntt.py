@@ -1,5 +1,9 @@
 """halo_tpu_torch.ops.ntt against halo_tpu.hostpoly.ntt_host (ark-poly's
-natural-order evaluation), forward and inverse, at n <= 2^10.
+natural-order evaluation), forward and inverse, at n <= 2^10; and the
+pass plan (_passes) runs every stage once, in order, in passes the
+kernel can hold.  On the CPU a plan of any split computes the same plain
+code, so whether a later pass indexes its twiddles right is the CUDA
+test's to show (test_torch_mont.py).
 
 Tolerance: zero (exact field values compared as ints).
 
@@ -15,7 +19,7 @@ import torch
 from halo_tpu.curves import PALLAS, VESTA
 from halo_tpu.fields import FP_MOD, FQ_MOD
 from halo_tpu.hostpoly import ntt_host
-from halo_tpu_torch.ops import ff, ntt
+from halo_tpu_torch.ops import ff, mont, ntt
 from halo_tpu_torch.plonk.engine import Engine
 
 # One intra-op thread per pytest-xdist worker: the workers share the cores,
@@ -44,8 +48,30 @@ def test_ntt_matches_host():
                 v = [rng.randrange(m) for _ in range(n)]
                 got = _unmont(ntt.ntt(m, _mont_rows(v, m), inverse), m)
                 assert got == ntt_host(m, v, inverse), (hex(m)[-8:], log_n, inverse)
+    assert ntt._passes(20) == [(0, 10), (10, 5), (15, 5)]
+    assert ntt._passes(10, 2) == [(0, 2)] + [(s, 1) for s in range(2, 10)]
+    for log_n in range(1, 25):
+        for tile_log in range(1, mont.NTT_TILE_LOG + 1):
+            _check_pass_plan(log_n, tile_log)
     for cfg in (PALLAS, VESTA):
         _check_batched_roundtrip_and_extension(cfg)
+
+
+def _check_pass_plan(log_n, tile_log):
+    """Stages 1 .. log_n, each once and in order; the first pass starts at
+    stage 1 (it reads bit-reversed) with a tile of 2^min(log_n, tile_log);
+    a later pass runs at most max(1, tile_log - 3) stages over 8 columns,
+    within the kernel's tile; at the kernel's tile_log, at most 3 passes
+    up to 2^24."""
+    plan = ntt._passes(log_n, tile_log)
+    assert plan[0] == (0, min(log_n, tile_log)), (log_n, tile_log, plan)
+    assert [s0 for s0, _ in plan] == [sum(j for _, j in plan[:i]) for i in range(len(plan))]
+    assert sum(j for _, j in plan) == log_n, (log_n, tile_log, plan)
+    for s0, j in plan[1:]:
+        assert 1 <= j <= max(1, tile_log - mont.NTT_COLS_LOG), (log_n, tile_log, plan)
+        assert mont.NTT_COLS_LOG + j <= mont.NTT_TILE_LOG
+    if tile_log == mont.NTT_TILE_LOG:
+        assert len(plan) <= 3, (log_n, plan)
 
 
 def _check_batched_roundtrip_and_extension(cfg):
