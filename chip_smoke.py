@@ -60,16 +60,37 @@ phase falls back to the CPU or to a plain version:
               MSM (srs.msm_naive)
   7. ivc      IVCState.init from tests/fixtures/ivc_consts.json and
               --ivc-steps steps of the 2^16-row IVC chain (both curves'
-              proofs), each verified; the SRS of both curves at 2^16 is
-              derived first, inside the counted run; each step's line
-              gives each curve's round5.open+accumulate.  Step 1's proofs
-              must equal tests/fixtures/ivc_step1_{pallas,vesta}.bin where
-              those exist.
-  8. kernels  phase 4 again at the IVC path's shapes (2^16 rows: 2^16 + 2
+              proofs, one after the other on one card, the measured
+              default), each verified; the SRS of both
+              curves at 2^16 is derived first, inside the counted run; each
+              step's line gives the provers' joint wall and each one's,
+              each curve's round5.open+accumulate and the step's peak
+              device memory.  Step 1's proofs must equal
+              tests/fixtures/ivc_step1_{pallas,vesta}.bin where those
+              exist.  Then the last step's two circuits are proved again
+              the other way (at once, each in its own thread on its own
+              stream, parallel/pipeline.py), on every card when there are two
+              or more (each prover on half of them, its NTTs and
+              commitments sharded): the same bytes, 7107 each, both
+              verified; its wall and peak memory beside the step's
+  8. mesh     the parallel layer on Mesh((card, card)), two logical
+              shards of the card (every card when there are two or more):
+              the 4-step NTT (parallel/ntt.py) forward at (8, 2^20), the
+              inverse at (8, 2^19) and the transposed layout at (8, 2^20),
+              each equal to ntt.ntt word for word, with its launches and
+              device ms beside ntt.ntt's; the sharded commitment
+              (parallel/msm.py) of an (8, 3, 2^16) stack, equal to
+              msm2_srs_rows_multi's points; then the counted run: the
+              last IVC step's 2^16-row Pallas circuit proved on a mesh
+              Engine (4-step NTTs, sharded commitments), its bytes equal
+              to the step's single-device proof, verified, its wall beside
+              the single-device one.  Shards on one card exchange nothing
+              between cards: those times measure no traffic between cards
+  9. kernels  phase 4 again at the IVC path's shapes (2^16 rows: 2^16 + 2
               SRS lanes, the 8 * 2^16 extended domain, a 2^16 commitment's
               scan), over each curve's fields; the kernels line reports
               the Pallas ones
-  9. schnorr  poseidon_permute against its plain version at (3, 8, 8192)
+  10. schnorr poseidon_permute against its plain version at (3, 8, 8192)
               and at 1, 7, 10, 11 and 8195 states (partly filled warps of
               ten states) on both fields, timed at 8192 and 2^16 states; then the
               counted run on Pallas: sign_batch of 8192 seeded 10-field
@@ -86,7 +107,7 @@ phase falls back to the CPU or to a plain version:
               alone fails), three tamperings (s, message, R: those lanes
               alone fail), and Vesta at 512 signatures with one flipped s
 
-Each counted run (srs, plonk, ivc, schnorr) sets every kernel's launch count to 0
+Each counted run (srs, plonk, ivc, mesh, schnorr) sets every kernel's launch count to 0
 just before it and reads the counts just after; a kernel of that path with
 no launch fails the run, and so does any launch of ec_pmadd, ec_pdbl or
 ntt_butterfly, an NTT (ntt.ntt) of more than 3 ntt_pass launches, a
@@ -160,6 +181,7 @@ PATH_KERNELS = {
             "field_sub"),
     "schnorr": ("field_mul", "field_add", "field_sub", "ec_smul", "ec_pmadd_scan",
                 "poseidon_permute"),
+    "mesh": ("field_mul", "ntt_pass", "ec_padd", "ec_pmadd_scan", "field_add", "field_sub"),
 }
 OFF_PATH = ("ec_pmadd", "ec_pdbl", "ntt_butterfly")
 NTT_MAX_PASSES = 3  # ntt_pass launches a transform of n <= 2^24
@@ -214,10 +236,10 @@ def _counted(name: str, fn):
             on_card.append(tuple(v.shape))
         return canon(m, v)
 
-    def counted_ntt(*args, **kwargs):
-        before = kernels.LAUNCHES["ntt_pass"]
+    def counted_ntt(*args, **kwargs):  # this thread's launches: provers may run at once
+        before = kernels.thread_launches("ntt_pass")
         out = transform(*args, **kwargs)
-        passes.append(kernels.LAUNCHES["ntt_pass"] - before)
+        passes.append(kernels.thread_launches("ntt_pass") - before)
         return out
 
     kernels.reset_counts()
@@ -668,11 +690,21 @@ def _plonk_path(dev, log_rows: int, seed: int) -> dict:
     return launches
 
 
-def _ivc_path(dev, steps: int) -> dict:
+def _ivc_path(dev, steps: int, card: str):
+    """The counted IVC run (both SRS, init, `steps` steps, the provers as
+    ivc.at_once decides: on one card in turn), then the last step's two
+    circuits proved again the other way: the same bytes.  Returns (the
+    counted run's launches, the last state, the last step's
+    (cfg, circuit, public inputs, witness) of each proof)."""
+    import torch
+
     from halo_tpu_torch import srs
     from halo_tpu_torch.curves import PALLAS, VESTA
+    from halo_tpu_torch.frontend import ivc
     from halo_tpu_torch.frontend.ivc import IVCState, _params_from_reference_fixture
     from halo_tpu_torch.ops import kernels
+    from halo_tpu_torch.parallel.mesh import Mesh, data_mesh
+    from halo_tpu_torch.plonk import protocol
     from halo_tpu_torch.profile_ivc import phase_by_curve, phase_times
 
     gold = {c: ROOT / "tests" / "fixtures" / f"ivc_step1_{c}.bin" for c in ("pallas", "vesta")}
@@ -685,12 +717,19 @@ def _ivc_path(dev, steps: int) -> dict:
                           f"{_split_line(split)}")
         state = IVCState.init(_params_from_reference_fixture(), dev)
         state.verify()
-        for _ in range(steps):
+        for step in range(steps):
             before = kernels.counts()
-            with phase_times() as phases:
-                t0 = time.perf_counter()
-                state = state.prove()
-                t_step = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats(dev)
+            if step == steps - 1:  # keep the last step's circuits to prove them again
+                ivc.prove_pair = keep_jobs
+            try:
+                with phase_times() as phases:
+                    t0 = time.perf_counter()
+                    state = state.prove()
+                    t_step = time.perf_counter() - t0
+            finally:
+                ivc.prove_pair = prove_pair
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
             round5 = phase_by_curve(phases)
             t0 = time.perf_counter()
             state.verify()
@@ -707,21 +746,143 @@ def _ivc_path(dev, steps: int) -> dict:
                 held = "; both equal to tests/fixtures/ivc_step1_*.bin byte for byte"
             t = state.timings
             _phase("ivc", f"step {state.i - 1}->{state.i}: {t_step:.3f} s (trace {t['trace']:.3f} s, "
-                          f"prove pallas {t['prove_pallas']:.3f} s, prove vesta "
-                          f"{t['prove_vesta']:.3f} s, verify in prove {t['verify']:.3f} s; "
+                          f"prove {t['prove']:.3f} s {mode}: pallas {t['prove_pallas']:.3f} s, "
+                          f"vesta {t['prove_vesta']:.3f} s; verify in prove {t['verify']:.3f} s; "
                           f"round5.open+accumulate pallas {round5['pallas'][0]:.3f} s, vesta "
                           f"{round5['vesta'][0]:.3f} s); "
                           f"state.verify() {t_verify:.3f} s; proofs {sizes['pallas']} + "
-                          f"{sizes['vesta']} bytes{held}")
+                          f"{sizes['vesta']} bytes{held}; peak device memory {peak:.2f} GiB; "
+                          f"{card}")
             after = kernels.counts()
             _phase("ivc", f"step {state.i} kernel launches: "
                           f"{json.dumps({k: after[k] - before[k] for k in after})}")
         return state
 
-    _, launches = _counted("ivc", run)
+    prove_pair, last_jobs = ivc.prove_pair, []
+
+    def keep_jobs(jobs, *args, **kwargs):
+        last_jobs[:] = jobs
+        return prove_pair(jobs, *args, **kwargs)
+
+    concurrent = ivc.at_once(Mesh((dev,)))
+    mode = "(the provers at once)" if concurrent else "(one prover after the other)"
+    state, launches = _counted("ivc", run)
+    if [cfg for cfg, *_ in last_jobs] != [PALLAS, VESTA]:
+        raise AssertionError("the last IVC step proved no Pallas and Vesta circuits")
     if launches["ec_smul"] != 2:
         raise AssertionError(f"two SRS derivations launched ec_smul {launches['ec_smul']} times")
     _phase("ivc", f"kernel launches, SRS + {steps} steps: {json.dumps(launches)}")
+
+    # the last step's circuits proved again, the other way; with two or
+    # more cards, on all of them (each prover on cards of its own)
+    cards = data_mesh() if torch.cuda.device_count() >= 2 else Mesh((dev,))
+    torch.cuda.reset_peak_memory_stats(dev)
+    again, t_again = ivc.prove_pair(last_jobs, cards, sequential=concurrent)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    for (cfg, circuit, x, _), mine, theirs in zip(last_jobs, again,
+                                                 (state.fp_proof, state.fq_proof)):
+        raw = mine.to_bytes(cfg)
+        if raw != theirs.to_bytes(cfg) or len(raw) != 7107:
+            raise AssertionError(f"step {state.i} {cfg.name}: the re-prove's {len(raw)} bytes "
+                                 f"differ from the step's proof")
+        protocol.verify(cfg, mine, circuit, x, dev)
+    t = state.timings
+    _phase("ivc", f"step {state.i}'s circuits proved again "
+                  f"{'one after the other' if concurrent else 'at once'} on {len(cards)} "
+                  f"card(s): the same 7107 + 7107 "
+                  f"bytes, both verified; prove {t_again['prove']:.3f} s (pallas "
+                  f"{t_again['prove_pallas']:.3f} s, vesta {t_again['prove_vesta']:.3f} s), peak "
+                  f"device memory {peak:.2f} GiB; the step {mode}: prove {t['prove']:.3f} s; {card}")
+    return launches, state, last_jobs
+
+
+def _mesh_path(dev, state, jobs, card: str, seed: int) -> dict:
+    """The parallel layer on a mesh: two logical shards of this card, or
+    every card when there are two or more.  The 4-step NTT (forward at
+    (8, 16n), inverse at (8, 8n), the transposed layout) against ntt.ntt,
+    the sharded commitment of an (8, 3, n) stack against
+    msm2_srs_rows_multi, then the counted run: the last IVC step's Pallas
+    circuit (n = 2^16 rows) proved on a mesh Engine, its bytes equal to
+    the step's single-device proof.  On one card the shards' exchanges are
+    copies within the card: no traffic between cards is measured."""
+    import torch
+
+    from halo_tpu_torch import measure
+    from halo_tpu_torch.curves import PALLAS
+    from halo_tpu_torch.ops import ff, kernels, msm2, ntt
+    from halo_tpu_torch.parallel import msm as pmsm
+    from halo_tpu_torch.parallel import ntt as pntt
+    from halo_tpu_torch.parallel.mesh import Mesh, data_mesh, gather
+    from halo_tpu_torch.plonk import protocol
+
+    mesh = data_mesh() if torch.cuda.device_count() >= 2 else Mesh((dev, dev))
+    one_card = len(set(mesh.devices)) == 1
+    what = (f"{len(mesh)} shards on one card (no traffic between cards)" if one_card
+            else f"{len(mesh)} cards")
+    rng = random.Random(seed)
+    m, n = PALLAS.r, IVC_ROWS
+
+    def rows(k, *shape):
+        return ff.to_rows([rng.randrange(m) for _ in range(k)], dev).reshape(8, *shape)
+
+    def timed(fn):
+        # a graph replays one card's launches; across cards, the trace's sum
+        return measure.device_ms(fn, 3) if one_card else measure.traced_device_ms(fn, 3)
+
+    for label, x, inverse, natural in (("forward", rows(16 * n, 16 * n), False, True),
+                                       ("inverse", rows(8 * n, 8 * n), True, True),
+                                       ("forward, transposed", rows(16 * n, 16 * n), False, False)):
+        want = ntt.ntt(m, x, inverse)
+        if not natural:
+            d = len(mesh)
+            want = want.reshape(8, -1, d).transpose(1, 2).reshape(want.shape)
+        before = kernels.counts()
+        got = gather(pntt.ntt_distributed(m, mesh, x, inverse, natural), dev)
+        after = kernels.counts()
+        if not got.equal(want):
+            raise AssertionError(f"mesh: the 4-step {label} NTT at {tuple(x.shape)} differs from ntt.ntt")
+        launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        ms = timed(lambda: pntt.ntt_distributed(m, mesh, x, inverse, natural))
+        single_ms = measure.device_ms(lambda: ntt.ntt(m, x, inverse), 3)
+        _phase("mesh", f"4-step NTT, {label}, {tuple(x.shape)} over {what}: equal to ntt.ntt word "
+                       f"for word; launches {json.dumps(launches)}; {ms:.4f} ms device "
+                       f"(ntt.ntt {single_ms:.4f} ms); {card}")
+
+    K = ff.to_rows([rng.randrange(PALLAS.r) for _ in range(3 * n)], dev).reshape(8, 3, n)
+    t0 = time.perf_counter()
+    single = msm2.msm2_srs_rows_multi(PALLAS, K)
+    t_single_msm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded = pmsm.msm2_srs_rows_sharded(PALLAS, mesh, K)
+    t_sharded = time.perf_counter() - t0
+    if sharded != single:
+        raise AssertionError("mesh: the sharded commitment differs from msm2_srs_rows_multi")
+    _phase("mesh", f"sharded commitment of an (8, 3, {n}) stack over {what}: equal to "
+                   f"msm2_srs_rows_multi's points; {t_sharded:.3f} s (single device "
+                   f"{t_single_msm:.3f} s); {card}")
+
+    cfg, circuit, x, w = jobs[0]
+    if cfg is not PALLAS:
+        raise AssertionError(f"the IVC step's first proof is on {cfg.name}")
+
+    def run():
+        t0 = time.perf_counter()
+        proof = protocol.naive_prover(cfg, circuit, x, w, dev, mesh=mesh)
+        torch.cuda.synchronize()
+        return proof, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    (proof, t_mesh), launches = _counted("mesh", run)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    raw = proof.to_bytes(cfg)
+    if raw != state.fp_proof.to_bytes(cfg):
+        raise AssertionError("mesh: the 2^16 Pallas proof differs from the single-device proof")
+    protocol.verify(cfg, proof, circuit, x, dev)
+    _phase("mesh", f"the IVC step's {circuit.rows}-row Pallas circuit proved on a mesh Engine over "
+                   f"{what}: {len(raw)} bytes equal to the single-device proof, verified; prove "
+                   f"{t_mesh:.3f} s (the step's single-device prover: "
+                   f"{state.timings['prove_pallas']:.3f} s); peak device memory {peak:.2f} GiB; {card}")
+    _phase("mesh", f"kernel launches: {json.dumps(launches)}")
     return launches
 
 
@@ -1035,16 +1196,21 @@ def main() -> int:
                      f"and verified ({time.perf_counter() - t0:.2f} s)")
 
     # 6. and 7. the counted paths
-    by_path = {"srs": srs_launches, "plonk": _plonk_path(dev, args.log_rows, args.seed),
-               "ivc": _ivc_path(dev, args.ivc_steps)}
+    by_path = {"srs": srs_launches, "plonk": _plonk_path(dev, args.log_rows, args.seed)}
+    by_path["ivc"], state, jobs = _ivc_path(dev, args.ivc_steps, card)
 
-    # 8. kernels vs plain at the IVC path's shapes, on both curves (after
+    # 8. the parallel layer: the 4-step NTT, the sharded commitment and the
+    # IVC step's Pallas circuit proved on a mesh
+    by_path["mesh"] = _mesh_path(dev, state, jobs, card, args.seed)
+    del state, jobs
+
+    # 9. kernels vs plain at the IVC path's shapes, on both curves (after
     # the path: the 2^16 SRS it derives inside its counted run is at hand)
     _phase("kernels", f"at the IVC path's shapes (2^{IVC_LOG_ROWS} rows)")
     for cfg in (VESTA, PALLAS):
         checked[f"ivc {cfg.name}"] = _kernels_vs_plain(dev, cfg, IVC_LOG_ROWS, args.seed)
 
-    # 9. the Schnorr batch
+    # 10. the Schnorr batch
     checked["schnorr pallas"] = _poseidon_vs_plain(dev, args.seed)
     by_path["schnorr"], held = _schnorr_path(dev, args.seed)
     checked["schnorr pallas"].update(held)

@@ -7,6 +7,7 @@ used when a caller passes device="cpu" (the tests do).
 
 from __future__ import annotations
 
+import functools
 import shutil
 import subprocess
 
@@ -37,3 +38,28 @@ def card_line() -> str:
 def sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def sync_stream(dev: torch.device) -> None:
+    """Wait for the calling thread's current stream on `dev` only: a
+    thread of parallel/pipeline.py must not wait for the other's work."""
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+
+
+def cached(maxsize: int):
+    """functools.lru_cache for a function that builds device tensors (a
+    tensor, or a tuple of tensors and None).  On a miss the building
+    thread's stream is synchronised before the value is cached, so a
+    thread on another stream (parallel/pipeline.py) never reads a cached
+    tensor whose copy or kernel has not finished."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def build(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            for t in out if isinstance(out, tuple) else (out,):
+                if isinstance(t, torch.Tensor):
+                    sync_stream(t.device)
+            return out
+        return functools.lru_cache(maxsize)(build)
+    return wrap

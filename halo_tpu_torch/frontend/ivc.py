@@ -11,14 +11,23 @@ tests/fixtures/ivc_consts.json at the production size, 2^16 rows.
 
 A step builds the wire circuit and its trace on the host (the static
 q/r/id/sigma rows come from the trace cache after the first step), then
-proves the Pallas and the Vesta trace one after the other on the device
-and verifies both.  The two proofs are independent (ivc/mod.rs:648-649);
-proving them at once on two streams is left for later.
+proves the Pallas and the Vesta trace and verifies both.  The two proofs
+are independent (ivc/mod.rs:648-649).  halo_tpu proves them at once in
+two threads on an accelerator (halo_tpu/frontend/ivc.py:292-317); the
+port does so (parallel/pipeline.py run_disjoint: a thread and a CUDA
+stream each) where the state's mesh gives each prover devices of its
+own, and on one card proves them one after the other: there the two
+threads, serialised by Python's interpreter lock, made the step slower in
+one call's A/B (PERF.md §6).  HALO_TPU_IVC_SEQUENTIAL=1 proves them
+in turn everywhere (halo_tpu/config.py:46-50: peak device memory is about
+twice one prover's); on the CPU they run in turn.  The bytes are the same
+either way.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import random
 import time
 from dataclasses import dataclass, field
@@ -28,7 +37,9 @@ import torch
 from .. import acc as acc_mod
 from .. import pcdl, schnorr
 from ..curves import PALLAS, VESTA, ec_mul
-from ..device import sync
+from ..device import sync, sync_stream
+from ..parallel import pipeline
+from ..parallel.mesh import Mesh
 from ..plonk import protocol
 from ..plonk.constants import Q_POLYS, R_POLYS, S_POLYS, T_POLYS, W_POLYS
 from ..plonk.trace import PlonkCircuit, PlonkCircuitCommitments, PlonkPublicInputs, trace_pair
@@ -154,11 +165,14 @@ class IVCState:
     fq_public_input: PlonkPublicInputs
     device: torch.device
     # wall seconds of the step that made this state: "trace" (wire circuit,
-    # witness and both traces), "prove_pallas", "prove_vesta", "verify"
+    # witness and both traces), "prove_pallas" and "prove_vesta" (each
+    # prover's own wall), "prove" (both provers), "verify"
     timings: dict = field(default_factory=dict)
+    # the devices the provers run on (prove_pair); None: `device` alone
+    mesh: Mesh | None = None
 
     @staticmethod
-    def init(params: IVCParams, device, rng=None) -> "IVCState":
+    def init(params: IVCParams, device, rng=None, mesh: Mesh | None = None) -> "IVCState":
         rng = rng or random.Random(1337)
         device = torch.device(device)
         rows = params.rows
@@ -191,7 +205,7 @@ class IVCState:
             fq_proof=zero_proof(VESTA, acc0_vesta),
             fq_public_input=PlonkPublicInputs(
                 public_inputs=[0] * params.fq_circuit.public_input_count, acc_prev=acc0_vesta),
-            device=device,
+            device=device, mesh=mesh,
         )
 
     def prove(self, rng=None) -> "IVCState":
@@ -217,15 +231,9 @@ class IVCState:
         sync(dev)
         times["trace"] = time.perf_counter() - t0
 
-        # the two proofs are independent; one after the other gives the
-        # same bytes as the reference's concurrent provers
-        proofs = []
-        for cfg, circuit, x, w in ((PALLAS, fp_circuit, fp_x, fp_w),
-                                   (VESTA, fq_circuit, fq_x, fq_w)):
-            t0 = time.perf_counter()
-            proofs.append(protocol.naive_prover(cfg, circuit, x, w, dev))
-            sync(dev)
-            times[f"prove_{cfg.name}"] = time.perf_counter() - t0
+        jobs = ((PALLAS, fp_circuit, fp_x, fp_w), (VESTA, fq_circuit, fq_x, fq_w))
+        proofs, prove_times = prove_pair(jobs, self.mesh or Mesh((dev,)))
+        times.update(prove_times)
         t0 = time.perf_counter()
         protocol.verify(PALLAS, proofs[0], fp_circuit, fp_x, dev)
         protocol.verify(VESTA, proofs[1], fq_circuit, fq_x, dev)
@@ -234,7 +242,7 @@ class IVCState:
         return IVCState(
             params=params, pk=pk_next, sk=sk_next, signature=signature_next, i=self.i + 1,
             fp_proof=proofs[0], fp_public_input=fp_x, fq_proof=proofs[1], fq_public_input=fq_x,
-            device=dev, timings=times,
+            device=dev, timings=times, mesh=self.mesh,
         )
 
     def verify(self) -> None:
@@ -244,6 +252,49 @@ class IVCState:
                         self.device)
         protocol.verify(VESTA, self.fq_proof, self.params.fq_circuit, self.fq_public_input,
                         self.device)
+
+
+def at_once(mesh: Mesh, k: int = 2) -> bool:
+    """Whether k provers on `mesh` run at once by default: never under
+    HALO_TPU_IVC_SEQUENTIAL=1 (read at each step, as halo_tpu/config.py:49-50
+    reads it), else only where split_mesh gives each prover devices of its
+    own."""
+    if os.environ.get("HALO_TPU_IVC_SEQUENTIAL") == "1":
+        return False
+    subs = pipeline.split_mesh(mesh, k)
+    return len({d for sub in subs for d in sub.devices}) == sum(len(sub) for sub in subs)
+
+
+def prove_pair(jobs, mesh: Mesh, sequential: bool | None = None) -> tuple[list, dict]:
+    """Prove each (cfg, circuit, public inputs, witness) of `jobs`, prover
+    i on sub-mesh i of pipeline.split_mesh(mesh, len(jobs)) (its NTTs and
+    commitments sharded when the sub-mesh has several devices): at once
+    through pipeline.run_disjoint on CUDA devices unless `sequential`
+    (default: not at_once(mesh)), else one after the other.  Returns the
+    proofs and the wall seconds: "prove_<curve>" of each prover (its
+    thread's own, ending when its stream is done), "prove" of all."""
+    if sequential is None:
+        sequential = not at_once(mesh, len(jobs))
+    times = {}
+
+    def task(cfg, circuit, x, w):
+        def prove(sub):
+            t0 = time.perf_counter()
+            proof = protocol.naive_prover(cfg, circuit, x, w, sub.devices[0],
+                                          sub if len(sub) > 1 else None)
+            sync_stream(sub.devices[0])
+            times[f"prove_{cfg.name}"] = time.perf_counter() - t0
+            return proof
+        return prove
+
+    tasks = [task(*job) for job in jobs]
+    t0 = time.perf_counter()
+    if sequential or mesh.devices[0].type != "cuda":
+        proofs = [t(sub) for t, sub in zip(tasks, pipeline.split_mesh(mesh, len(tasks)))]
+    else:
+        proofs = pipeline.run_disjoint(mesh, tasks)
+    times["prove"] = time.perf_counter() - t0
+    return proofs, times
 
 
 def _dec_pt(p):

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Compare the port's kernels of two source trees on one card, in turns.
 
-    python3 -m halo_tpu_torch.kernel_ab --trees PARENT . . PARENT \
+    python3 -m halo_tpu_torch.kernel_ab --trees PARENT . .:seq PARENT \
         [--profile-steps 2] [--prove-reps 1] [--out build/kernel_ab.json]
     python3 -m halo_tpu_torch.kernel_ab --summarize build/kernel_ab.json
 
-PARENT is an unpacked checkout of another commit (`git archive`).  For each
-tree, in the order given, a fresh process imports halo_tpu_torch from that
+PARENT is an unpacked checkout of another commit (`git archive`).  A tree
+given as PATH:seq runs with HALO_TPU_IVC_SEQUENTIAL=1 (its IVC provers one
+after the other on any mesh); the variable is removed for every other
+tree (frontend/ivc.py at_once decides).  For each tree, in the order given, a fresh process imports halo_tpu_torch from that
 tree (its kernels build into <tree>/build/) and measures, on the same
 seeded inputs:
 
@@ -34,9 +36,10 @@ seeded inputs:
     calls of 8,192 seeded signatures on Pallas;
   - with --profile-steps N: this checkout's profile_ivc.py, run against
     the tree's package: IVCState.init, N steps, the last one traced
-    (wall, device busy, idle share, each kernel's device time, torch's
-    own kernels, the host's launch, sync, copy and any() calls, each
-    step's round5.open+accumulate per curve).
+    (wall, device busy, idle share, the streams' overlap, peak device
+    memory, each kernel's device time, torch's own kernels, the host's
+    launch, sync, copy and any() calls, each step's
+    round5.open+accumulate per curve).
 
 A worker runs this file as a script with the tree first on sys.path, and
 loads this checkout's measure.py and profile_ivc.py by path: the trees
@@ -57,6 +60,7 @@ import argparse
 import collections
 import importlib.util
 import json
+import os
 import random
 import re
 import shutil
@@ -166,7 +170,10 @@ def summarize(results: list) -> None:
         pr = r["profile"]
         bounds = step_bounds(pr["launch_shapes"])
         print(f"{r['tree']}: traced step {pr['step'] - 1}->{pr['step']}, wall {pr['wall_s']:.3f} s, "
-              f"device busy {pr['device_busy_s']:.4f} s, idle share {pr['idle_share']:.4f}")
+              f"device busy {pr['device_busy_s']:.4f} s, idle share {pr['idle_share']:.4f}"
+              + (f", streams' overlap {pr['stream_overlap_s']:.4f} s, stream busy "
+                 f"{pr['stream_busy_s']}, peak {pr['peak_memory_gib']:.2f} GiB"
+                 if "stream_overlap_s" in pr else ""))
         for name, k in pr["port_kernels"].items():
             if k["calls"]:
                 print(f"  {name}: {k['device_s']:.4f} s over {k['calls']} launches, bound "
@@ -357,22 +364,34 @@ def main() -> int:
     if not args.trees:
         ap.error("--trees is required")
     results = []
-    for tree in args.trees:
+    for spec in args.trees:
+        path, _, mode = str(spec).partition(":")
+        tree = Path(path)
+        env = {k: v for k, v in os.environ.items() if k != "HALO_TPU_IVC_SEQUENTIAL"}
+        if mode:
+            if mode != "seq":
+                raise SystemExit(f"{spec}: the only tree mode is PATH:seq")
+            env["HALO_TPU_IVC_SEQUENTIAL"] = "1"
         cmd = [sys.executable, str(Path(__file__).resolve()), "--worker", str(tree.resolve()),
                "--profile-steps", str(args.profile_steps), "--prove-reps", str(args.prove_reps)]
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=1800)
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=1800, env=env)
         lines = [ln for ln in res.stdout.splitlines() if ln.startswith("AB_RESULT ")]
         if res.returncode != 0 or not lines:
             print(res.stdout[-3000:], res.stderr[-6000:], file=sys.stderr)
-            raise SystemExit(f"worker for {tree} failed ({res.returncode})")
+            raise SystemExit(f"worker for {spec} failed ({res.returncode})")
         results.append(json.loads(lines[0][len("AB_RESULT "):]))
         r = results[-1]
+        r["tree"] = str(tree.resolve()) + (f":{mode}" if mode else "")
         extra = ""
         if "profile" in r:
             pr = r["profile"]
+            split = pr["split_s"]
             extra = (f"; untraced steps s {[round(w, 3) for w in pr.get('untraced_steps_s', [])]}, "
-                     f"traced step wall {pr['wall_s']:.3f} s, busy {pr['device_busy_s']:.4f} s, "
-                     f"idle {pr['idle_share']:.4f}")
+                     f"traced step wall {pr['wall_s']:.3f} s (prove "
+                     f"{split.get('prove', float('nan')):.3f} s: pallas "
+                     f"{split['prove_pallas']:.3f}, vesta {split['prove_vesta']:.3f}), busy "
+                     f"{pr['device_busy_s']:.4f} s, idle {pr['idle_share']:.4f}, streams' overlap "
+                     f"{pr['stream_overlap_s']:.4f} s, peak {pr['peak_memory_gib']:.2f} GiB")
         if "schnorr" in r:
             extra += (f"; verify_batch of {r['schnorr']['n']}: median "
                       f"{r['schnorr']['median_sig_per_s']:.1f} sig/s of "

@@ -24,6 +24,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..device import cached
 from ..fields import FP_MOD, FQ_MOD, R256
 
 NWORDS = 8
@@ -122,7 +123,7 @@ def _limbs_of(x: int) -> list[int]:
     return [(x >> (LB * j)) & M26 for j in range(NL - 1)] + [x >> (LB * (NL - 1))]
 
 
-@lru_cache(maxsize=64)
+@cached(64)
 def _kp(m: int, k: int, device: torch.device) -> torch.Tensor:
     """k*m as (10, 1) limbs (the top limb holds the bits above 234)."""
     return torch.tensor(_limbs_of(k * m), dtype=torch.int64, device=device).reshape(NL, 1)

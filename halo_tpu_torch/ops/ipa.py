@@ -23,19 +23,18 @@ independent, so each proof is the one a single open makes.
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 
 from ..curves import Affine, CurveCfg, ec_add, ec_mul
+from ..device import cached
 from ..fields import inv
 from ..plonk.engine import Engine
 from ..poseidon.sponge import Protocols, Sponge
 from . import ff, msm2
 
 
-@lru_cache(maxsize=64)
+@cached(64)
 def _round_indices(n: int, k: int, device: torch.device):
     """Round k (1-based): original indices of the bit_k = 0 / bit_k = 1
     supports and the cs positions feeding each (halo_tpu _round_indices)."""

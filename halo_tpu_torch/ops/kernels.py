@@ -10,11 +10,18 @@ loaded library for each kernel's registers and local memory (spill) bytes
 per thread (cudaFuncGetAttributes).
 
 Each C entry returns cudaGetLastError(); `launch` raises on any non-zero
-value.  LAUNCHES counts launches per kernel: a wrapper adds one exactly
+value.  A C entry launches on the runtime's current device, so `launch`
+makes the device of its first tensor argument current and passes that
+device's current stream: a kernel on cuda:1 tensors is enqueued on cuda:1,
+and a thread that set its own stream (parallel/pipeline.py) launches
+there.  LAUNCHES counts launches per kernel: a wrapper adds one exactly
 where it launches its kernel, so a run can show that its main path went
 through every kernel.  COPIES counts the operand copies a wrapper makes
 before a launch because the kernel cannot read the operand in place
-(field_add and field_sub read any view whose lanes are contiguous).
+(field_add and field_sub read any view whose lanes are contiguous).  Both
+are summed over every thread under `_lock`; thread_launches() gives the
+calling thread's own count, for a check that must not see another
+thread's launches.
 """
 
 from __future__ import annotations
@@ -58,21 +65,36 @@ _SIGNATURES = {
 
 _lib = None
 _lock = threading.Lock()
+_thread = threading.local()  # .launches: this thread's launches per kernel
 BUILD_SECONDS: float | None = None
 
 
 def reset_counts() -> None:
-    for name in NAMES:
-        LAUNCHES[name] = 0
-        COPIES[name] = 0
+    with _lock:
+        for name in NAMES:
+            LAUNCHES[name] = 0
+            COPIES[name] = 0
 
 
 def counts() -> dict[str, int]:
-    return dict(LAUNCHES)
+    with _lock:
+        return dict(LAUNCHES)
 
 
 def copies() -> dict[str, int]:
-    return dict(COPIES)
+    with _lock:
+        return dict(COPIES)
+
+
+def count_copy(name: str) -> None:
+    with _lock:
+        COPIES[name] += 1
+
+
+def thread_launches(name: str) -> int:
+    """Launches of `name` made by the calling thread since it started
+    (reset_counts does not reset them)."""
+    return getattr(_thread, "launches", {}).get(name, 0)
 
 
 def _nvcc() -> str:
@@ -147,14 +169,25 @@ def local_bytes() -> dict[str, int]:
 
 
 def launch(name: str, *args) -> None:
-    """Call C entry halo_<name> on the current stream; count the launch;
-    raise on a launch error."""
+    """Call C entry halo_<name> with `args`, each tensor passed as its data
+    pointer, under the device of the first tensor (switched to only when
+    another is current) and on that device's current stream (the calling
+    thread's); count the launch; raise on a launch error."""
     lib = build()
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, "halo_" + name)(*args, stream)
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    entry, stream = getattr(lib, "halo_" + name), torch.cuda.current_stream(dev).cuda_stream
+    if dev.index == torch.cuda.current_device():
+        err = entry(*ptrs, stream)
+    else:  # the runtime's current device is the one the entry launches on
+        with torch.cuda.device(dev):
+            err = entry(*ptrs, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
-    LAUNCHES[name] += 1
+    with _lock:
+        LAUNCHES[name] += 1
+    mine = _thread.__dict__.setdefault("launches", {})
+    mine[name] = mine.get(name, 0) + 1
 
 
 def check_cuda(*tensors: torch.Tensor, contiguous: bool = True) -> None:

@@ -45,10 +45,9 @@ formula level into one multiplication, which gives the same values.
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import torch
 
+from ..device import cached
 from ..fields import R256
 
 from . import ff, kernels
@@ -89,8 +88,7 @@ def field_mul(m: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     kernels.check_cuda(a, b)
     out = torch.empty_like(a)
     n = a.shape[1:].numel()
-    kernels.launch("field_mul", out.data_ptr(), a.data_ptr(), b.data_ptr(), n,
-                   1 if bcast else 0, ff.field_id(m))
+    kernels.launch("field_mul", out, a, b, n, 1 if bcast else 0, ff.field_id(m))
     return out
 
 
@@ -120,13 +118,12 @@ def _addsub(name: str, plain, m: int, a: torch.Tensor, b: torch.Tensor) -> torch
         bcast = count == 1
         if not bcast and not t[0].is_contiguous():  # lanes not contiguous
             t = t.contiguous()
-            kernels.COPIES[name] += 1
+            kernels.count_copy(name)
         ops.append((t, t.stride(0), bcast))
     (a, sa, ba), (b, sb, bb) = ops
     kernels.check_cuda(a, b, contiguous=False)
     out = torch.empty(shape, dtype=torch.int32, device=a.device)
-    kernels.launch(name, out.data_ptr(), a.data_ptr(), b.data_ptr(), n, sa, int(ba), sb,
-                   int(bb), ff.field_id(m))
+    kernels.launch(name, out, a, b, n, sa, int(ba), sb, int(bb), ff.field_id(m))
     return out
 
 
@@ -181,8 +178,7 @@ def ntt_butterfly(m: int, x: torch.Tensor, tw: torch.Tensor, half: int,
     tw = tw.contiguous()
     kernels.check_cuda(x, tw)
     y = torch.empty_like(x)
-    kernels.launch("ntt_butterfly", y.data_ptr(), x.data_ptr(), tw.data_ptr(), M, half,
-                   tw.shape[1], tw_stride, ff.field_id(m))
+    kernels.launch("ntt_butterfly", y, x, tw, M, half, tw.shape[1], tw_stride, ff.field_id(m))
     return y
 
 
@@ -192,7 +188,7 @@ NTT_TILE_LOG = 10  # csrc/kernels.cu kNttTileLog: the elements a block of ntt_pa
 NTT_COLS_LOG = 3  # kNttColsLog: a later pass's tile is 8 low offsets x 2^j rows
 
 
-@lru_cache(maxsize=64)
+@cached(64)
 def bit_reverse(log_n: int, device: torch.device) -> torch.Tensor:
     """The bit-reversal permutation of range(2^log_n), as int64 indices."""
     i = torch.arange(1 << log_n, dtype=torch.int64)
@@ -240,9 +236,7 @@ def ntt_pass(m: int, x: torch.Tensor, tw: torch.Tensor, log_n: int, s0: int, j: 
         scale = scale.contiguous()
         kernels.check_cuda(x, tw, scale)
     y = torch.empty_like(x)
-    kernels.launch("ntt_pass", y.data_ptr(), x.data_ptr(), tw.data_ptr(),
-                   None if scale is None else scale.data_ptr(), x.shape[1], log_n, s0, j,
-                   ff.field_id(m))
+    kernels.launch("ntt_pass", y, x, tw, scale, x.shape[1], log_n, s0, j, ff.field_id(m))
     return y
 
 
@@ -354,8 +348,7 @@ def ec_padd(p_mod: int, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
     Q = Q.contiguous()
     kernels.check_cuda(P, Q)
     out = torch.empty_like(P)
-    kernels.launch("ec_padd", out.data_ptr(), P.data_ptr(), Q.data_ptr(),
-                   P.shape[2:].numel(), ff.field_id(p_mod))
+    kernels.launch("ec_padd", out, P, Q, P.shape[2:].numel(), ff.field_id(p_mod))
     return out
 
 
@@ -384,8 +377,8 @@ def ec_pmadd(p_mod: int, P: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     xy = xy.contiguous()
     kernels.check_cuda(P, xy)
     out = torch.empty_like(P)
-    kernels.launch("ec_pmadd", out.data_ptr(), P.data_ptr(), xy.data_ptr(), n,
-                   1 if xy.shape[1] == 1 and n != 1 else 0, ff.field_id(p_mod))
+    kernels.launch("ec_pmadd", out, P, xy, n, 1 if xy.shape[1] == 1 and n != 1 else 0,
+                   ff.field_id(p_mod))
     return out
 
 
@@ -406,8 +399,7 @@ def ec_pdbl(p_mod: int, P: torch.Tensor) -> torch.Tensor:
     P = P.contiguous()
     kernels.check_cuda(P)
     out = torch.empty_like(P)
-    kernels.launch("ec_pdbl", out.data_ptr(), P.data_ptr(), P.shape[2:].numel(),
-                   ff.field_id(p_mod))
+    kernels.launch("ec_pdbl", out, P, P.shape[2:].numel(), ff.field_id(p_mod))
     return out
 
 
@@ -456,8 +448,7 @@ def ec_pmadd_scan(p_mod: int, xy: torch.Tensor, idx: torch.Tensor,
     if idx.device != xy.device or neg.device != xy.device:
         raise ValueError("scan operands on different devices")
     out = torch.empty((3, NWORDS, R, F), dtype=torch.int32, device=xy.device)
-    kernels.launch("ec_pmadd_scan", out.data_ptr(), xy_pm.data_ptr(), idx.data_ptr(),
-                   neg.data_ptr(), R, F, xy.shape[1], ff.field_id(p_mod))
+    kernels.launch("ec_pmadd_scan", out, xy_pm, idx, neg, R, F, xy.shape[1], ff.field_id(p_mod))
     return out
 
 
@@ -494,8 +485,8 @@ def ec_smul(p_mod: int, xy: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     k = k.contiguous()
     kernels.check_cuda(xy, k)
     out = torch.empty((3, NWORDS, n), dtype=torch.int32, device=k.device)
-    kernels.launch("ec_smul", out.data_ptr(), xy.data_ptr(), k.data_ptr(), n,
-                   1 if xy.shape[1] == 1 and n != 1 else 0, ff.field_id(p_mod))
+    kernels.launch("ec_smul", out, xy, k, n, 1 if xy.shape[1] == 1 and n != 1 else 0,
+                   ff.field_id(p_mod))
     return out
 
 

@@ -264,15 +264,22 @@ def msm2_srs(cfg: CurveCfg, scalars: list[int], device) -> Affine:
     return msm2_srs_rows(cfg, K)
 
 
-def msm2(cfg: CurveCfg, scalars: list[int], points: list[Affine], device) -> Affine:
-    """General MSM over explicit affine points (None = identity)."""
+def pack_explicit(cfg: CurveCfg, scalars: list[int], points: list[Affine], n: int, device):
+    """(xy (16, n) Montgomery table, K (8, n) canonical scalar words) of
+    explicit affine points, padded to n; an identity (None, or a pad) is
+    a genuine point, (-1, 2), with a zero scalar."""
+    gx, gy = cfg.p - 1, 2
     n_req = len(scalars)
-    if n_req == 0:
-        return None
-    n = pad_pow2(n_req)
-    gx, gy = cfg.p - 1, 2  # (-1, 2): a genuine point standing in for the identity
     pts = list(points[:n_req]) + [None] * (n - n_req)
     xy = ecrows.pack_points(cfg.p, [gx if q is None else q[0] for q in pts],
                             [gy if q is None else q[1] for q in pts], device)
     ks = [0 if q is None else s % cfg.r for s, q in zip(list(scalars) + [0] * (n - n_req), pts)]
-    return msm_multi(cfg, xy, ff.to_rows(ks, device)[:, None])[0]
+    return xy, ff.to_rows(ks, device)
+
+
+def msm2(cfg: CurveCfg, scalars: list[int], points: list[Affine], device) -> Affine:
+    """General MSM over explicit affine points (None = identity)."""
+    if not scalars:
+        return None
+    xy, K = pack_explicit(cfg, scalars, points, pad_pow2(len(scalars)), device)
+    return msm_multi(cfg, xy, K[:, None])[0]

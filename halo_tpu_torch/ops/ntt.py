@@ -17,6 +17,7 @@ from functools import lru_cache
 
 import torch
 
+from ..device import cached
 from ..fields import R256, two_adic_root_of_unity
 
 from . import ff, mont
@@ -41,7 +42,7 @@ def _plan(m: int, log_n: int, inverse: bool):
     return tw, n_inv
 
 
-@lru_cache(maxsize=64)
+@cached(64)
 def _plan_dev(m: int, log_n: int, inverse: bool, device: torch.device):
     """(W as the (n/2, 8) element-major table ntt_pass reads, n^-1 R as
     (8, 1) rows or None)."""

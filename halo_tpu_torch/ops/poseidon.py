@@ -17,10 +17,9 @@ launches a permutation, so it is one kernel.
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import torch
 
+from ..device import cached
 from ..fields import FP_MOD, FQ_MOD, R256
 from ..poseidon.constants import FP_MDS, FP_ROUND_CONSTANTS, FQ_MDS, FQ_ROUND_CONSTANTS
 from ..poseidon.sponge import PERM_ROUNDS_FULL
@@ -39,7 +38,7 @@ def _params(m: int):
     raise ValueError(f"not a Pasta modulus: {m:#x}")
 
 
-@lru_cache(maxsize=8)
+@cached(8)
 def mont_consts(m: int, device: torch.device) -> torch.Tensor:
     """The field's constants in Montgomery form as one (174, 8) int32
     tensor on `device`: the MDS row-major (9), then the round constants,
@@ -83,8 +82,7 @@ def permute_batch(m: int, state: torch.Tensor) -> torch.Tensor:
     consts = mont_consts(m, state.device)
     kernels.check_cuda(state, consts)
     out = torch.empty_like(state)
-    kernels.launch("poseidon_permute", out.data_ptr(), state.data_ptr(), consts.data_ptr(),
-                   state.shape[2], ff.field_id(m))
+    kernels.launch("poseidon_permute", out, state, consts, state.shape[2], ff.field_id(m))
     return out
 
 

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..curves import Affine, CurveCfg, ec_add, ec_mul
+from ..device import cached
 from ..fields import R256
 from ..poseidon.sponge import Protocols
 from . import ecrows, ff, mont, msm2, poseidon
@@ -90,7 +91,7 @@ def _table_words(cfg: CurveCfg, pk: Affine) -> np.ndarray:
     return np.ascontiguousarray(np.concatenate((xw.T, yw.T))).view(np.int32)
 
 
-@lru_cache(maxsize=8)
+@cached(8)
 def tables(cfg: CurveCfg, pk: Affine, device) -> torch.Tensor:
     """The verifier's table for (cfg, pk) as (16, 2*TABLE + 1) Montgomery
     rows on `device`, copied there once."""

@@ -2,7 +2,7 @@
 
 Polynomials are canonical Montgomery word rows: one polynomial of n
 coefficients or evaluations is (8, n); a batch of k is (8, k, n).  The
-NTTs run on the ntt_butterfly kernel, every product on field_mul (on CUDA
+NTTs run on the ntt_pass kernel, every product on field_mul (on CUDA
 at every size: the JAX engine's 2^15-lane threshold for its rows kernel
 was a TPU compile-memory workaround), add/sub on the field_add and
 field_sub kernels (no host read: the JAX engine's add_jit/sub_jit
@@ -11,6 +11,12 @@ over field_mul with one host inversion (mont.scan_mul, mont.batch_inv),
 and commitments are batched SRS MSMs (ops/msm2.py).  Host constants go
 to the card already in Montgomery form (consts): one copy for a batch of
 them, and none for a constant the engine has sent before.
+
+With a mesh (parallel/mesh.py), the NTTs of a size the 4-step split
+takes (_mesh_ntt_ok) run as parallel/ntt.py's distributed NTT and the
+commitments as parallel/msm.py's sharded MSM; their results come back to
+`device`, where everything else stays (halo_tpu/plonk/engine.py:37-96,
+:200-223).  The proof bytes are the same either way.
 """
 
 from __future__ import annotations
@@ -20,6 +26,9 @@ import torch
 from ..curves import CurveCfg
 from ..fields import R256
 from ..ops import ff, msm2, mont, ntt
+from ..parallel import msm as pmsm
+from ..parallel import ntt as pntt
+from ..parallel.mesh import Mesh, gather
 
 
 def _powers(m: int, x: int, n: int) -> list[int]:
@@ -32,10 +41,11 @@ def _powers(m: int, x: int, n: int) -> list[int]:
 
 
 class Engine:
-    def __init__(self, cfg: CurveCfg, device):
+    def __init__(self, cfg: CurveCfg, device, mesh: Mesh | None = None):
         self.cfg = cfg
         self.m = cfg.r  # scalar modulus
         self.device = torch.device(device)
+        self.mesh = mesh
         self._one = ff.mont_one(self.m, self.device)
         self._r2 = ff.const_rows(R256 * R256 % self.m, self.device)
         self._unit = ff.const_rows(1, self.device)
@@ -83,17 +93,29 @@ class Engine:
 
     # ---------------- polynomial ops ---------------- #
 
+    def _mesh_ntt_ok(self, n: int) -> bool:
+        """halo_tpu's test: a power of two, d | n and n >= d^2."""
+        if self.mesh is None:
+            return False
+        d = len(self.mesh)
+        return n >= d * d and n % d == 0 and n & (n - 1) == 0
+
+    def _ntt(self, a: torch.Tensor, inverse: bool) -> torch.Tensor:
+        if self._mesh_ntt_ok(a.shape[-1]):
+            return gather(pntt.ntt_distributed(self.m, self.mesh, a, inverse), self.device)
+        return ntt.ntt(self.m, a, inverse)
+
     def ntt(self, coeffs: torch.Tensor) -> torch.Tensor:
-        return ntt.ntt(self.m, coeffs)
+        return self._ntt(coeffs, False)
 
     def intt(self, evals: torch.Tensor) -> torch.Tensor:
-        return ntt.intt(self.m, evals)
+        return self._ntt(evals, True)
 
     def ntt_extended(self, coeffs: torch.Tensor, big_n: int) -> torch.Tensor:
         """Evaluate degree-<n coefficients over the size-big_n domain."""
         pad = big_n - coeffs.shape[-1]
         z = torch.zeros((*coeffs.shape[:-1], pad), dtype=coeffs.dtype, device=coeffs.device)
-        return ntt.ntt(self.m, torch.cat((coeffs, z), -1))
+        return self._ntt(torch.cat((coeffs, z), -1), False)
 
     def mul(self, a, b):
         return mont.field_mul(self.m, a, b)
@@ -157,6 +179,8 @@ class Engine:
         batched MSM pipeline."""
         n = coeffs.shape[-1]
         assert n <= d + 1, f"degree bound: {n} coeffs > d+1 = {d + 1}"
+        if self.mesh is not None:
+            return pmsm.msm2_srs_rows_sharded(self.cfg, self.mesh, self.from_mont(coeffs))
         return msm2.msm2_srs_rows_multi(self.cfg, self.from_mont(coeffs))
 
     # ---------------- sequential algebra ---------------- #

@@ -376,10 +376,12 @@ def public_input_eval(m: int, public_inputs, n_scalar, omega, xi, xi_n):
 
 
 def naive_prover(cfg: CurveCfg, circuit: PlonkCircuit, x: PlonkPublicInputs,
-                 w: PlonkWitness, device) -> PlonkProof:
+                 w: PlonkWitness, device, mesh=None) -> PlonkProof:
+    """The proof on `device`; `mesh` (parallel/mesh.py Mesh) shards the
+    engine's NTTs and commitments over its devices."""
     from .protocol_device import naive_prover_device
 
-    return naive_prover_device(cfg, circuit, x, w, device)
+    return naive_prover_device(cfg, circuit, x, w, device, mesh)
 
 
 # ---------------- verifier ---------------- #

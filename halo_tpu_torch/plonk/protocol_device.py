@@ -19,6 +19,7 @@ import torch
 from .. import acc as acc_mod
 from ..curves import CurveCfg
 from ..ops import ipa
+from ..parallel.mesh import Mesh
 from ..pcdl import Instance
 from ..poseidon.sponge import Protocols, Sponge
 from ..utils.timing import RoundTimer
@@ -70,10 +71,13 @@ def _roll(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def naive_prover_device(cfg: CurveCfg, circuit: PlonkCircuit, public_inputs: PlonkPublicInputs,
-                        witness: PlonkWitness, device) -> PlonkProof:
+                        witness: PlonkWitness, device, mesh: Mesh | None = None) -> PlonkProof:
+    """The proof on `device`; with a mesh, the engine's NTTs and
+    commitments run sharded over it (plonk/engine.py), with the same
+    bytes."""
     device = torch.device(device)
     timer = RoundTimer(f"plonk.prover_torch[{cfg.name}, n={circuit.rows}, {device}]")
-    eng = Engine(cfg, device)
+    eng = Engine(cfg, device, mesh)
     m = cfg.r
     n = circuit.rows
     d = n - 1

@@ -18,6 +18,7 @@ kept on the device (halo_tpu/plonk/trace.py:103-121,160-165).
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -97,6 +98,7 @@ def build_sigma(m: int, eqs: list[list[SlotId]], rows: int):
 
 TRACE_CACHE_ENTRIES = 4  # each pins (8, 49, n) device rows: ~100 MB at 2^16
 _STATIC_TRACE_CACHE: dict = {}  # LRU
+_STATIC_TRACE_LOCK = threading.Lock()
 
 
 def _static_key(cfg: CurveCfg, circuit: PlonkCircuit, device: torch.device):
@@ -109,6 +111,11 @@ def _static_polys(cfg: CurveCfg, data: TraceData, device, circuit: Optional[Plon
     """(sigma, (8, n_q + n_r + 2*S_POLYS, n) Montgomery coefficient rows of
     the q, r, id and sigma polys, (n_q, n_r, n_s)), from the cache when the
     circuit is frozen and was seen before."""
+    with _STATIC_TRACE_LOCK:
+        return _static_polys_locked(cfg, data, device, circuit)
+
+
+def _static_polys_locked(cfg, data, device, circuit):
     key = _static_key(cfg, circuit, device) if circuit is not None else None
     entry = _STATIC_TRACE_CACHE.pop(key, None) if key is not None else None
     if entry is None:

@@ -6,8 +6,14 @@ the port's kernels, and the shapes each kernel was launched at.
 
 Runs IVCState.init and `--steps` steps on the first CUDA device, timing
 the untraced ones, and traces the last one with torch.profiler (CPU and
-CUDA activities).  Device busy time is the sum of the CUDA kernels' self
-time in the trace; the idle share is 1 - busy / wall.  The device time
+CUDA activities).  Device busy time is the union of the intervals in which
+the trace shows device activity (kernels, copies) on any stream; the idle
+share is 1 - busy / wall.  The provers of a step run at once on two
+streams (frontend/ivc.py), so the trace also gives each stream's busy
+time and the overlap: the time in which two or more streams were busy at
+once; the sum of the CUDA kernels' self time (what busy time meant before
+the provers ran at once) is kept beside it.  The traced step's peak
+device memory is torch.cuda.max_memory_allocated.  The device time
 and launches of kernels that are not the port's (torch's elementwise,
 reduce, copy and cat kernels) are summed apart.  The host side is
 summarised by the CPU ops and CUDA runtime calls of most self time, and
@@ -19,7 +25,8 @@ count launches by shape (field_mul, field_add, field_sub: lanes and
 broadcast; ntt_butterfly: lanes and half; ntt_pass: lanes, log_n, s0, j
 and the inverse's scale; ec_padd, ec_pmadd, ec_pdbl:
 lanes; ec_pmadd_scan: R x F; ec_smul: lanes and broadcast); the wrappers
-themselves are not touched.  Each step's prover phases per curve
+themselves are not touched (the counts take a lock: the provers' threads
+share them).  Each step's prover phases per curve
 (round5.open+accumulate: the IPA opens and the accumulation) come from
 the provers' RoundTimer lines (phase_times).  Prints one JSON line;
 fails if the trace holds no device time.
@@ -33,6 +40,7 @@ import contextlib
 import json
 import logging
 import re
+import threading
 import time
 
 import torch
@@ -109,6 +117,7 @@ class _ShapeCounter:
     def __init__(self):
         self.counts = {k: collections.Counter() for k in KERNELS}
         self._saved = {}
+        self._lock = threading.Lock()
 
     def __enter__(self):
         for name in KERNELS:
@@ -118,7 +127,9 @@ class _ShapeCounter:
             self._saved[name] = fn
 
             def counted(*args, _name=name, _fn=fn):
-                self.counts[_name][_shape_key(_name, args)] += 1
+                key = _shape_key(_name, args)
+                with self._lock:
+                    self.counts[_name][key] += 1
                 return _fn(*args)
 
             setattr(mont, name, counted)
@@ -143,6 +154,39 @@ def _port_kernel(key: str) -> str | None:
     return None
 
 
+def _merged(intervals) -> list[tuple[int, int]]:
+    out: list[list[int]] = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return [(a, b) for a, b in out]
+
+
+def stream_times(prof) -> dict:
+    """From a trace's device activity (kineto events on a CUDA device:
+    kernels, copies, sets): seconds of the union over all streams
+    ("busy_s"), of each stream's union ("streams"), and of the time in
+    which at least two streams were busy at once ("overlap_s")."""
+    by_stream = collections.defaultdict(list)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            by_stream[(e.device_index(), e.device_resource_id())].append(
+                (e.start_ns(), e.start_ns() + e.duration_ns()))
+    merged = {k: _merged(v) for k, v in by_stream.items()}
+    edges = sorted((t, step) for iv in merged.values() for a, b in iv for t, step in ((a, 1), (b, -1)))
+    overlap, active, prev = 0, 0, None
+    for t, step in edges:
+        if active >= 2:
+            overlap += t - prev
+        active, prev = active + step, t
+    busy = sum(b - a for a, b in _merged(iv for v in merged.values() for iv in v))
+    return {"busy_s": busy / 1e9, "overlap_s": overlap / 1e9,
+            "streams": {f"{dev}:{sid}": sum(b - a for a, b in iv) / 1e9
+                        for (dev, sid), iv in sorted(merged.items())}}
+
+
 def profile_step(dev: torch.device, steps: int) -> dict:
     """Init, steps - 1 untraced steps, then one traced step."""
     state = IVCState.init(_params_from_reference_fixture(), dev)
@@ -154,13 +198,16 @@ def profile_step(dev: torch.device, steps: int) -> dict:
             devmod.sync(dev)
             untraced.append(time.perf_counter() - t0)
         round5.append(phase_by_curve(phases))
+    torch.cuda.reset_peak_memory_stats(dev)
     with phase_times() as phases, _ShapeCounter() as shapes, \
             profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state = state.prove()
         devmod.sync(dev)
         wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
     round5.append(phase_by_curve(phases))
+    streams = stream_times(prof)
     averages = prof.key_averages()
     kernels = sorted(((e.key, e.self_device_time_total / 1e6, e.count)
                       for e in averages if e.device_type == DeviceType.CUDA),
@@ -168,8 +215,9 @@ def profile_step(dev: torch.device, steps: int) -> dict:
     host_ops = sorted(((e.key, e.self_cpu_time_total / 1e6, e.count)
                        for e in averages if e.device_type == DeviceType.CPU),
                       key=lambda k: -k[1])
-    busy = sum(k[1] for k in kernels)
-    if busy <= 0:
+    kernel_sum = sum(k[1] for k in kernels)
+    busy = streams["busy_s"]
+    if busy <= 0 or kernel_sum <= 0:
         raise RuntimeError("the trace holds no device time")
     port = {name: {"device_s": 0.0, "calls": 0} for name in KERNELS}
     other = {"device_s": 0.0, "calls": 0}
@@ -186,7 +234,9 @@ def profile_step(dev: torch.device, steps: int) -> dict:
     return {
         "card": devmod.card_line(), "step": state.i, "untraced_steps_s": untraced, "wall_s": wall,
         "split_s": state.timings, "round5_open_accumulate_s": round5, "device_busy_s": busy,
-        "idle_share": 1 - busy / wall, "port_kernels": port, "other_kernels": other,
+        "idle_share": 1 - busy / wall, "device_kernel_sum_s": kernel_sum,
+        "stream_overlap_s": streams["overlap_s"], "stream_busy_s": streams["streams"],
+        "peak_memory_gib": peak / 2**30, "port_kernels": port, "other_kernels": other,
         "host_calls": host_calls, "launch_shapes": shapes.as_dict(),
         "top_kernels": [{"name": k[0][:80], "device_s": k[1], "calls": k[2]}
                         for k in kernels[:8]],

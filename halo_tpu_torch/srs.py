@@ -19,6 +19,7 @@ It is the derivation's own table, kept on the device it was derived on.
 from __future__ import annotations
 
 import hashlib
+import threading
 import time
 from dataclasses import dataclass
 from functools import lru_cache
@@ -119,6 +120,7 @@ def derive_srs(cfg_name: str, n: int, device, split: dict | None = None) -> Publ
 
 
 _DERIVED: dict[str, PublicParams] = {}
+_DERIVED_LOCK = threading.Lock()  # the provers of parallel/pipeline.py share _DERIVED
 
 
 def load_srs(cfg_name: str, n: int, device, split: dict | None = None) -> PublicParams:
@@ -127,16 +129,17 @@ def load_srs(cfg_name: str, n: int, device, split: dict | None = None) -> Public
     are the same points); `device` runs the derivation, which fills
     `split` (derive_srs)."""
     assert n & (n - 1) == 0 and n <= N_MAX
-    pp = _DERIVED.get(cfg_name)
-    if pp is None or len(pp) < n:
-        pp = _DERIVED[cfg_name] = derive_srs(cfg_name, n, device, split)
+    with _DERIVED_LOCK:
+        pp = _DERIVED.get(cfg_name)
+        if pp is None or len(pp) < n:
+            pp = _DERIVED[cfg_name] = derive_srs(cfg_name, n, device, split)
     if len(pp) == n:
         return pp
     return PublicParams(cfg=pp.cfg, S=pp.S, H=pp.H, D=n - 1, gs_x=pp.gs_x[:n], gs_y=pp.gs_y[:n],
                         table=pp.table[:, :n])
 
 
-@lru_cache(maxsize=8)
+@devmod.cached(8)
 def srs_pack(cfg_name: str, n: int, device: torch.device) -> torch.Tensor:
     """The first n SRS generators as a packed (16, n) device table: the
     derivation's Montgomery table, moved to `device` if it lies elsewhere."""

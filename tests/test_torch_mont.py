@@ -1,8 +1,9 @@
 """halo_tpu_torch.ops.mont and ops.poseidon: the kernel wrappers' plain
 versions against exact ints, halo_tpu.curves and halo_tpu.poseidon, the
 CUDA field constants against halo_tpu.fields, and (on a card only) each
-kernel against its plain version and the Schnorr batch's verdicts on the
-card against the CPU's.
+kernel against its plain version, the Schnorr batch's verdicts on the
+card against the CPU's, and the launch counts of many threads on streams
+of their own.
 
 Tolerance: zero.  Field values are compared as ints, points as affine
 ints (projective coordinates of equal points may differ by a scale).
@@ -11,6 +12,8 @@ ints (projective coordinates of equal points may differ by a scale).
 import os
 import random
 import re
+import sys
+import threading
 from pathlib import Path
 
 import pytest
@@ -366,8 +369,7 @@ def _check_cuda_ntt_pass(cuda_device, m):
             assert got.equal(y), (log_n, k, plan, inverse)
     x = torch.zeros((8, 1 << 11), dtype=torch.int32, device=cuda_device)
     with pytest.raises(RuntimeError, match="ntt_pass failed to launch"):
-        kernels.launch("ntt_pass", x.data_ptr(), x.data_ptr(), x.data_ptr(), None, 1 << 11, 11,
-                       3, 8, ff.field_id(m))
+        kernels.launch("ntt_pass", x, x, x, None, 1 << 11, 11, 3, 8, ff.field_id(m))
 
 
 def _check_cuda_ec_kernels(cuda_device, cfg):
@@ -471,6 +473,42 @@ def _check_cuda_schnorr_batch(cuda_device):
     assert got == [True, False, True, False, False, True]
 
 
+def _check_cuda_launches_from_threads(cuda_device):
+    """Sixteen threads, each on a stream of its own (as the provers of
+    parallel/pipeline.py), launch field_mul 50 times each with a short
+    switch interval: every result is right, each thread counts its own 50
+    (kernels.thread_launches) and the total grows by exactly 800."""
+    m, per, n_threads = FP_MOD, 50, 16
+    a = ff.to_rows(_vals(m, 1024, 5), cuda_device)
+    want = mont.field_mul_plain(m, a, a)
+    before = kernels.counts()["field_mul"]
+    mine, wrong = [], []
+
+    def work():
+        stream = torch.cuda.Stream(cuda_device)
+        stream.wait_stream(torch.cuda.current_stream(cuda_device))
+        with torch.cuda.stream(stream):
+            start = kernels.thread_launches("field_mul")
+            outs = [mont.field_mul(m, a, a) for _ in range(per)]
+            stream.synchronize()
+            mine.append(kernels.thread_launches("field_mul") - start)
+            wrong.extend(i for i, out in enumerate(outs) if not out.equal(want))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert mine == [per] * n_threads and not wrong
+    assert kernels.counts()["field_mul"] == before + per * n_threads
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain(cuda_device):
     for m in MODS:
@@ -482,3 +520,4 @@ def test_cuda_kernels_match_plain(cuda_device):
     for cfg in CURVES:
         _check_cuda_ec_kernels(cuda_device, cfg)
     _check_cuda_schnorr_batch(cuda_device)
+    _check_cuda_launches_from_threads(cuda_device)

@@ -4,7 +4,11 @@ halo_tpu.curves.msm_host, single and batched, at n <= 2^10; and the
 Schnorr batch, whose verifier is a fixed-base MSM over the scan
 (halo_tpu_torch.schnorr, ops/schnorr_batch.py), against halo_tpu.schnorr:
 seeded keys and signatures, the batch hash, and the verdicts against the
-host verify on both curves, tampered signatures included.
+host verify on both curves, tampered signatures included.  The sharded
+MSMs of halo_tpu_torch.parallel.msm on Mesh((cpu,) * d), d = 2, 4, 8,
+against halo_tpu.curves.msm_host; parallel.pipeline.split_mesh against
+halo_tpu.parallel.pipeline.split_mesh's partition; run_disjoint of a
+Pallas and a Vesta MSM against the host (tests/test_parallel.py:112-135).
 
 Tolerance: zero (affine points compared as ints).
 
@@ -21,9 +25,14 @@ from halo_tpu import native
 from halo_tpu import schnorr as hschnorr
 from halo_tpu.curves import PALLAS, VESTA, ec_mul, msm_host
 from halo_tpu.ops import schnorr_batch as hschnorr_batch
+from halo_tpu.parallel import mesh as jmesh
+from halo_tpu.parallel import pipeline as jpipeline
 from halo_tpu.srs import load_srs
 from halo_tpu_torch import convert, schnorr, srs
 from halo_tpu_torch.ops import ecrows, ff, msm2, schnorr_batch
+from halo_tpu_torch.parallel import msm as pmsm
+from halo_tpu_torch.parallel import pipeline
+from halo_tpu_torch.parallel.mesh import Mesh
 
 # One intra-op thread per pytest-xdist worker: the workers share the cores,
 # and idle OpenMP threads spinning in each would starve the others.
@@ -145,3 +154,50 @@ def test_msm_matches_host():
     assert _check_schnorr_batch_matches_halo(PALLAS, 6, ("s", "message", "R")) == \
         [True, False, True, False, False, True]
     assert _check_schnorr_batch_matches_halo(VESTA, 3, ("s",)) == [True, False, True]
+    for d, cfg in ((2, PALLAS), (4, VESTA), (8, PALLAS)):
+        _check_sharded_msms(cfg, d)
+    _check_split_mesh_and_run_disjoint()
+
+
+def _cpu_mesh(d):
+    return Mesh((torch.device("cpu"),) * d)
+
+
+def _check_sharded_msms(cfg, d):
+    """msm2_sharded (explicit points, an identity among them) and
+    msm2_srs_rows_sharded (k = 2 SRS MSMs) of n = 64 over d shards equal
+    halo_tpu.curves.msm_host on the same points."""
+    n = 64
+    pts = _points(cfg, n, d)
+    pts[5] = None
+    ks = _scalars(cfg, n, d + 1)
+    assert pmsm.msm2_sharded(cfg, _cpu_mesh(d), ks, pts) == msm_host(cfg, ks, pts)
+    kss = [_scalars(cfg, n, 40 + i) for i in range(2)]
+    K = torch.stack([ff.to_rows(s, "cpu") for s in kss], 1)
+    gs = load_srs(cfg.name, n).gs_ints(n)
+    assert pmsm.msm2_srs_rows_sharded(cfg, _cpu_mesh(d), K) == [msm_host(cfg, s, gs) for s in kss]
+
+
+def _check_split_mesh_and_run_disjoint():
+    """split_mesh gives halo_tpu's partition (device indices against JAX
+    device ids) for meshes of 8, 3 and 1 devices into 2 and 3 parts; the
+    CUDA devices are descriptors only, nothing runs on them.  Then a
+    Pallas and a Vesta MSM at once on the two halves of an 8-shard CPU
+    mesh."""
+    for n_dev in (8, 3, 1):
+        mine = Mesh(tuple(torch.device("cuda", i) for i in range(n_dev)))
+        for k in (2, 3):
+            got = [[dev.index for dev in sub.devices] for sub in pipeline.split_mesh(mine, k)]
+            want = [[dev.id for dev in sub.devices.flat]
+                    for sub in jpipeline.split_mesh(jmesh.data_mesh(n_dev), k)]
+            assert got == want, (n_dev, k)
+    subs = pipeline.split_mesh(_cpu_mesh(8), 2)
+    assert [len(sub) for sub in subs] == [4, 4]
+    jobs = []
+    for cfg in (PALLAS, VESTA):
+        rng = random.Random(cfg.name)
+        pts = [ec_mul(cfg, cfg.generator, rng.randrange(1, cfg.r)) for _ in range(64)]
+        jobs.append((cfg, [rng.randrange(cfg.r) for _ in range(64)], pts))
+    got = pipeline.run_disjoint(_cpu_mesh(8), [
+        lambda sub, job=job: pmsm.msm2_sharded(job[0], sub, job[1], job[2]) for job in jobs])
+    assert got == [msm_host(cfg, ks, pts) for cfg, ks, pts in jobs]

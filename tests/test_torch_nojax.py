@@ -4,8 +4,9 @@ A subprocess blocks `import jax` and `import halo_tpu` (sys.modules[name] =
 None, so any attempt raises ImportError), imports halo_tpu_torch and
 chip_smoke, proves the golden Pallas circuit on the CPU (its SRS derived by
 the port), checks the bytes against tests/fixtures/proof_pallas.bin,
-verifies, builds the IVC start state, and reports every jax or halo_tpu
-module that got loaded (there must be none).  chip_smoke.py itself must
+verifies, builds the IVC start state, imports the parallel layer
+(halo_tpu_torch.parallel), and reports every jax or halo_tpu module that
+got loaded (there must be none).  chip_smoke.py itself must
 refuse to run without a GPU, and outside a checkout of the repository.
 """
 
@@ -27,6 +28,7 @@ import torch
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
 import halo_tpu_torch, chip_smoke
+from halo_tpu_torch.parallel import mesh, msm, ntt, pipeline
 from halo_tpu_torch.frontend.ivc import IVCState, _params_from_reference_fixture
 from halo_tpu_torch.plonk import protocol, trace
 from halo_tpu_torch.plonk.circuit import TRACE_CURVE

@@ -6,7 +6,8 @@ halo_tpu's parse, re-serialized byte for byte, verified; malformed bytes
 raise), sqrt and decompress_point against halo_tpu's,
 and a 2^8-row Poseidon-chain proof byte-equal to halo_tpu's host prover
 built from the same TraceBuilder, whose device mirrors equal halo_tpu's
-through convert.py.
+through convert.py; the same witness proved again on a 4-shard CPU mesh
+(the engine's NTTs and commitments sharded) gives the same bytes.
 
 Tolerance: zero.  Everything is exact; proofs are compared as bytes.
 """
@@ -36,6 +37,7 @@ from halo_tpu_torch.curves import decompress_point
 from halo_tpu_torch.errors import SerdeError
 from halo_tpu_torch.fields import sqrt
 from halo_tpu_torch.ops import ipa
+from halo_tpu_torch.parallel.mesh import Mesh
 from halo_tpu_torch.plonk import protocol, trace
 from halo_tpu_torch.plonk.engine import Engine
 
@@ -270,3 +272,8 @@ def test_proof_2k8_matches_host_prover():
     proof = protocol.naive_prover(cfg, circuit, x, w, CPU)
     assert proof.to_bytes(cfg) == want
     protocol.verify(cfg, proof, circuit, x, CPU)
+    # the same witness again, its NTTs (4-step) and commitments sharded
+    # over four logical shards: the trace's device mirrors are read, not
+    # consumed, so a second proof of it has the same bytes
+    on_mesh = protocol.naive_prover(cfg, circuit, x, w, CPU, mesh=Mesh((CPU,) * 4))
+    assert on_mesh.to_bytes(cfg) == want
