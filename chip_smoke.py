@@ -106,8 +106,24 @@ phase falls back to the CPU or to a plain version:
               table) against their plain versions, timed; bench.py's control (s of lane 0 flipped: lane 0
               alone fails), three tamperings (s, message, R: those lanes
               alone fail), and Vesta at 512 signatures with one flipped s
+  11. hiding  hiding IPA commitments at the IVC's width, n = 2^16, on
+              Pallas, over the SRS the ivc phase derived, with a seeded
+              random.Random: the counted run (pcdl.Instance.open with a
+              blinding factor, its split from the open's RoundTimer: host
+              draws of q and w_bar, q to the card, the blinding p_bar,
+              C_bar, p', the IPA rounds; pcdl.check; the instance's bytes
+              read back unchanged; two hiding instances and a non-hiding
+              one accumulated: acc.prover, verifier, decider, each timed;
+              peak device memory) must launch field_mul, field_add,
+              field_sub, ec_padd and ec_pmadd_scan; then pcdl.check must
+              reject w' + 1, another C_bar and v + 1; chunked_commit of
+              3 * 2^10 + 5 coefficients, with and without w, must equal
+              commit of each chunk (+ w*S), the chunks' sum commit of
+              their elementwise sum; and at 2^8 on both curves the card's
+              hiding proof bytes must equal the CPU's (the plain
+              versions) for the same seed
 
-Each counted run (srs, plonk, ivc, mesh, schnorr) sets every kernel's launch count to 0
+Each counted run (srs, plonk, ivc, mesh, schnorr, hiding) sets every kernel's launch count to 0
 just before it and reads the counts just after; a kernel of that path with
 no launch fails the run, and so does any launch of ec_pmadd, ec_pdbl or
 ntt_butterfly, an NTT (ntt.ntt) of more than 3 ntt_pass launches, a
@@ -182,6 +198,7 @@ PATH_KERNELS = {
     "schnorr": ("field_mul", "field_add", "field_sub", "ec_smul", "ec_pmadd_scan",
                 "poseidon_permute"),
     "mesh": ("field_mul", "ntt_pass", "ec_padd", "ec_pmadd_scan", "field_add", "field_sub"),
+    "hiding": ("field_mul", "field_add", "field_sub", "ec_padd", "ec_pmadd_scan"),
 }
 OFF_PATH = ("ec_pmadd", "ec_pdbl", "ntt_butterfly")
 NTT_MAX_PASSES = 3  # ntt_pass launches a transform of n <= 2^24
@@ -195,6 +212,9 @@ SCHNORR_VESTA_N = 512
 SCHNORR_MSG = 10  # fields a message
 POSEIDON_WIDE = 1 << 16  # states: a poseidon_permute launch that fills the card
 POSEIDON_ODD = (1, 7, 10, 11, 8195)  # widths that end in a partly filled warp, or none
+HIDING_CHUNK = 1 << 10  # chunked_commit's default chunk size
+HIDING_CHUNKED = 3 * HIDING_CHUNK + 5  # coefficients: three full chunks and one of 5
+HIDING_CPU_ROWS = 1 << 8  # the card's hiding proofs against the CPU's, both curves
 
 
 def _phase(name: str, msg: str) -> None:
@@ -1131,6 +1151,118 @@ def _schnorr_path(dev, seed: int) -> tuple[dict, dict]:
     return launches, held
 
 
+def _hiding_path(dev, seed: int, card: str) -> dict:
+    """Hiding IPA commitments at the IVC's width, n = 2^16, on Pallas, over
+    the SRS the ivc phase derived.  The counted run: Instance.open with a
+    blinding factor (its RoundTimer split: host draws, pack, blinding,
+    rounds), pcdl.check, the instance's bytes read back unchanged, and two
+    hiding instances and a non-hiding one accumulated (acc.prover,
+    verifier, decider).  Then, uncounted: w' + 1, another C_bar and v + 1
+    rejected; chunked_commit of HIDING_CHUNKED coefficients with and
+    without w against commit; at 2^8 on both curves the card's hiding
+    proof bytes against the CPU's (the plain versions), same seed.
+    Returns the counted run's launches."""
+    import dataclasses
+
+    import torch
+
+    from halo_tpu_torch import acc, pcdl
+    from halo_tpu_torch.curves import PALLAS, VESTA, ec_add
+    from halo_tpu_torch.errors import PcdlCheckError
+    from halo_tpu_torch.profile_ivc import phase_times
+
+    cfg, n = PALLAS, IVC_ROWS
+    d = n - 1
+    rng = random.Random(seed)
+    polys = [[rng.randrange(cfg.r) for _ in range(n)] for _ in range(3)]
+    zs = [rng.randrange(cfg.r) for _ in range(3)]
+    ws = [rng.randrange(cfg.r) for _ in range(2)]
+
+    def run():
+        t = {}
+        with phase_times() as phases:
+            t0 = time.perf_counter()
+            q0 = pcdl.Instance.open(cfg, polys[0], d, zs[0], dev, w=ws[0], rng=rng)
+            t["open"] = time.perf_counter() - t0
+        t.update((name.split(".", 1)[1], sec) for _, name, sec in phases
+                 if name.startswith("hiding."))
+        t0 = time.perf_counter()
+        pcdl.check(cfg, q0.C, d, q0.z, q0.v, q0.pi, dev)
+        t["check"] = time.perf_counter() - t0
+        raw = q0.to_bytes(cfg)
+        if pcdl.Instance.from_bytes(raw, cfg).to_bytes(cfg) != raw:
+            raise AssertionError("hiding: the instance's bytes changed through from_bytes")
+        qs = [q0, pcdl.Instance.open(cfg, polys[1], d, zs[1], dev, w=ws[1], rng=rng),
+              pcdl.Instance.open(cfg, polys[2], d, zs[2], dev)]
+        t0 = time.perf_counter()
+        accumulator = acc.prover(cfg, qs, dev)
+        t1 = time.perf_counter()
+        acc.verifier(cfg, qs, accumulator)
+        t2 = time.perf_counter()
+        acc.decider(cfg, accumulator, dev)
+        t.update(prover=t1 - t0, verifier=t2 - t1, decider=time.perf_counter() - t2)
+        return q0, raw, t
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    (q0, raw, t), launches = _counted("hiding", run)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if q0.pi.C_bar is None or q0.pi.w_prime is None:
+        raise AssertionError("hiding: the blinded open made a proof without C_bar and w'")
+    _phase("hiding", f"pallas, n = 2^{IVC_LOG_ROWS}: Instance.open with a blinding factor "
+                     f"{t['open']:.3f} s (host draws of q and w_bar {t['draws']:.3f} s, q to the "
+                     f"card {t['pack']:.3f} s, blinding: p_bar, C_bar, p' {t['blind']:.3f} s, "
+                     f"IPA rounds {t['rounds']:.3f} s); pcdl.check {t['check']:.3f} s; "
+                     f"{len(raw)} bytes read back unchanged; two hiding instances and a "
+                     f"non-hiding one accumulated: prover {t['prover']:.3f} s, verifier "
+                     f"{t['verifier']:.3f} s, decider {t['decider']:.3f} s; peak device memory "
+                     f"{peak:.2f} GiB; {card}")
+    _phase("hiding", f"kernel launches: {json.dumps(launches)}")
+
+    pi, v = q0.pi, q0.v
+    for label, bad, v_bad in (("w' + 1", dataclasses.replace(pi, w_prime=(pi.w_prime + 1) % cfg.r), v),
+                              ("another C_bar", dataclasses.replace(pi, C_bar=cfg.generator), v),
+                              ("v + 1", pi, (v + 1) % cfg.r)):
+        try:
+            pcdl.check(cfg, q0.C, d, q0.z, v_bad, bad, dev)
+        except PcdlCheckError:
+            continue
+        raise AssertionError(f"hiding: a proof with {label} passed pcdl.check")
+
+    coeffs = [rng.randrange(cfg.r) for _ in range(HIDING_CHUNKED)]
+    t0 = time.perf_counter()
+    plain = pcdl.chunked_commit(cfg, coeffs, d, dev, chunk_size=HIDING_CHUNK)
+    t_chunked = time.perf_counter() - t0
+    blinded = pcdl.chunked_commit(cfg, coeffs, d, dev, w=ws[0], chunk_size=HIDING_CHUNK)
+    chunks = [coeffs[i:i + HIDING_CHUNK] for i in range(0, len(coeffs), HIDING_CHUNK)]
+    if len(plain) != len(chunks) or plain != [pcdl.commit(cfg, c, d, dev) for c in chunks]:
+        raise AssertionError("hiding: chunked_commit's chunks differ from commit of each chunk")
+    if blinded != [pcdl.blind(cfg, C, ws[0]) for C in plain]:
+        raise AssertionError("hiding: chunked_commit with w is not each chunk + w*S")
+    total = None
+    for C in plain:
+        total = ec_add(cfg, total, C)
+    summed = [sum(c[i] for c in chunks if i < len(c)) % cfg.r for i in range(HIDING_CHUNK)]
+    if total != pcdl.commit(cfg, summed, d, dev):
+        raise AssertionError("hiding: the chunks' sum differs from commit of the chunks' sum")
+
+    m = HIDING_CPU_ROWS
+    for c in (PALLAS, VESTA):
+        r2 = random.Random(seed + m)
+        p = [r2.randrange(c.r) for _ in range(m - 3)]
+        z, w = r2.randrange(c.r), r2.randrange(c.r)
+        on = [pcdl.Instance.open(c, p, m - 1, z, where, w=w, rng=random.Random(seed))
+              for where in (dev, torch.device("cpu"))]
+        if on[0].to_bytes(c) != on[1].to_bytes(c):
+            raise AssertionError(f"hiding: the card's 2^8 {c.name} hiding proof differs from the CPU's")
+        pcdl.check(c, on[0].C, m - 1, z, on[0].v, on[0].pi, dev)
+    _phase("hiding", f"rejected by pcdl.check: w' + 1, another C_bar, v + 1; chunked_commit of "
+                     f"{HIDING_CHUNKED} coefficients: {len(plain)} chunks ({t_chunked:.3f} s), "
+                     f"each equal to commit of its coefficients, + w*S with w, their sum equal "
+                     f"to commit of the chunks' sum; 2^8 hiding proofs on the card equal to the "
+                     f"CPU's byte for byte, pallas and vesta")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-rows", type=int, default=14)
@@ -1214,6 +1346,9 @@ def main() -> int:
     checked["schnorr pallas"] = _poseidon_vs_plain(dev, args.seed)
     by_path["schnorr"], held = _schnorr_path(dev, args.seed)
     checked["schnorr pallas"].update(held)
+
+    # 11. hiding commitments at the IVC's width, over the ivc phase's SRS
+    by_path["hiding"] = _hiding_path(dev, args.seed, card)
 
     loaded = sorted(k for k, v in sys.modules.items()
                     if v is not None and k.split(".")[0] in ("jax", "jaxlib", "halo_tpu"))

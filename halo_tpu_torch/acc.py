@@ -7,7 +7,9 @@ reference crates/accumulation/src/acc.rs).
   verifier           re-run the subroutine, compare (C, d, z, h(z) = v)
   decider            the full pcdl.check, whose MSM runs on the device
 
-Hiding is stubbed out as in the reference (C_bar = C).  At n = 2^16,
+The instances may be hiding (pcdl's C_bar branch) or not, mixed.  The
+accumulator's own open is non-hiding, as in the reference (C_bar = C).
+At n = 2^16,
 k = 1 the zero accumulator comes from tests/fixtures/ivc_consts.json, as
 in halo_tpu: the reference's frozen base-case accumulators, which the
 from-scratch path reproduces.
@@ -24,13 +26,13 @@ from .curves import Affine, CurveCfg, from_jac, jac_add, jac_mul, to_jac
 from .errors import AccumulationError
 from .pcdl import HPoly, Instance
 from .poseidon.sponge import Protocols, Sponge
-from .serde import Reader, Writer
+from .serde import Reader, Serde, Writer
 
 IVC_CONSTS = Path(__file__).resolve().parents[1] / "tests" / "fixtures" / "ivc_consts.json"
 
 
 @dataclass
-class Accumulator:
+class Accumulator(Serde):
     q: Instance
 
     @classmethod

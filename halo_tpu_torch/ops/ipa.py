@@ -19,6 +19,11 @@ copy of every open's xi and xi^-1 to the card, already in Montgomery
 form.  Each open's c, z and G-weights stay its own tensors and fold with
 their own field_add/field_mul launches.  The opens' transcripts are
 independent, so each proof is the one a single open makes.
+
+The hiding open (open_hiding_device; halo_tpu/pcdl.py:247-267, which
+runs it on the host) blinds p on the device: p_bar = (X - z) * q for q
+drawn on the host, C_bar = MSM(p_bar) + w_bar*S, p' = p + a*p_bar, then
+runs the same rounds over (p', C') on the transcript that drew a.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from ..device import cached
 from ..fields import inv
 from ..plonk.engine import Engine
 from ..poseidon.sponge import Protocols, Sponge
+from ..utils.timing import RoundTimer
 from . import ff, msm2
 
 
@@ -57,9 +63,11 @@ def _coeff_rows(eng: Engine, p, n: int) -> torch.Tensor:
     return cs
 
 
-def _open_lockstep(cfg: CurveCfg, opens: list, d: int, device) -> list:
-    """Non-hiding IPA opens of (p, C, z, v) each, all of degree bound d,
-    folded in lockstep; byte-identical to opening each alone."""
+def _open_lockstep(cfg: CurveCfg, opens: list, d: int, device, sponges: list | None = None) -> list:
+    """IPA opens of (p, C, z, v) each, all of degree bound d, folded in
+    lockstep; byte-identical to opening each alone.  sponges[o], where
+    given, is open o's transcript so far (a hiding open's), which C, z
+    and v continue; otherwise a fresh PCDL sponge."""
     from .. import srs
     from ..pcdl import EvalProof
 
@@ -71,8 +79,8 @@ def _open_lockstep(cfg: CurveCfg, opens: list, d: int, device) -> list:
     pp = srs.load_srs(cfg.name, max(4, n), device)
 
     transcripts, xis, H_primes = [], [], []
-    for _, C, z, v in opens:
-        t = Sponge(Protocols.PCDL, cfg)
+    for (_, C, z, v), t in zip(opens, sponges or [None] * len(opens)):
+        t = Sponge(Protocols.PCDL, cfg) if t is None else t
         t.absorb_g([C])
         t.absorb_fr([z, v])
         xis.append(t.challenge())
@@ -148,3 +156,44 @@ def open_pair_without_eval_device(cfg: CurveCfg, opens: list, d: int, device) ->
     if len(opens) != 2:
         raise ValueError(f"a pair open takes two opens, got {len(opens)}")
     return _open_lockstep(cfg, opens, d, device)
+
+
+def open_hiding_device(cfg: CurveCfg, p, C: Affine, d: int, z: int, v: int, w: int, rng,
+                       device) -> EvalProof:
+    """Hiding IPA open of p (a host coefficient list or an (8, n')
+    Montgomery row tensor, n' <= d + 1) committed as C with blinding
+    factor w.  rng draws q's d coefficients, then w_bar (halo_tpu/pcdl.py
+    :251, :256): the same draws give the reference's proof byte for byte.
+    Its RoundTimer phases: hiding.draws (host), hiding.pack (q to the
+    device), hiding.blind (p_bar, C_bar, a, p', C'), hiding.rounds."""
+    from ..pcdl import blind
+
+    device = torch.device(device)
+    n = d + 1
+    m = cfg.r
+    eng = Engine(cfg, device)
+    timer = RoundTimer(f"pcdl.open_hiding[{cfg.name}, n={n}, {device}]")
+    q = [rng.randrange(m) for _ in range(d)]
+    w_bar = rng.randrange(m)
+    timer.mark("hiding.draws")
+    q_rows = eng.to_dev(q)
+    timer.mark("hiding.pack")
+
+    # p_bar = (X - z) q: p_bar_0 = -z q_0, p_bar_i = q_{i-1} - z q_i, p_bar_d = q_{d-1}
+    zero = eng.zeros(1)
+    p_bar = eng.sub(torch.cat((zero, q_rows), -1),
+                    eng.mul(torch.cat((q_rows, zero), -1), eng.const(z)))
+    C_bar = blind(cfg, eng.commit(p_bar, d), w_bar)
+    t = Sponge(Protocols.PCDL, cfg)
+    t.absorb_g([C, C_bar])
+    t.absorb_fr([z, v])
+    a = t.challenge()
+    p_prime = eng.add(_coeff_rows(eng, p, n), eng.mul(p_bar, eng.const(a)))
+    w_prime = (w_bar * a + w) % m
+    C_prime = blind(cfg, ec_add(cfg, C, ec_mul(cfg, C_bar, a)), (m - w_prime) % m)
+    timer.mark("hiding.blind")
+
+    pi = _open_lockstep(cfg, [(p_prime, C_prime, z, v)], d, device, [t])[0]
+    timer.mark("hiding.rounds")
+    pi.C_bar, pi.w_prime = C_bar, w_prime
+    return pi

@@ -16,11 +16,11 @@ from dataclasses import dataclass
 from .. import acc as acc_mod
 from .. import pcdl
 from ..curves import Affine, CurveCfg, from_jac, jac_add, jac_mul, to_jac
-from ..errors import PlonkVerifyError, SerdeError
+from ..errors import PlonkVerifyError
 from ..fields import FP_MOD, inv
 from ..poseidon.constants import FP_MDS, FQ_MDS
 from ..poseidon.sponge import Protocols, Sponge
-from ..serde import Reader, Writer
+from ..serde import Reader, Serde
 from .constants import Q_POLYS, R_POLYS, S_POLYS, T_POLYS, W_POLYS
 from .trace import PlonkCircuit, PlonkPublicInputs, PlonkWitness
 
@@ -99,7 +99,7 @@ class PlonkProofEvalProofs:
 
 
 @dataclass
-class PlonkProof:
+class PlonkProof(Serde):
     vs: PlonkProofEvals
     Cs: PlonkProofCommitments
     pis: PlonkProofEvalProofs
@@ -111,11 +111,6 @@ class PlonkProof:
         self.pis.serialize(w, cfg)
         self.acc_next.serialize(w, cfg)
 
-    def to_bytes(self, cfg: CurveCfg) -> bytes:
-        w = Writer()
-        self.serialize(w, cfg)
-        return w.data()
-
     @classmethod
     def deserialize(cls, r: Reader, cfg: CurveCfg) -> "PlonkProof":
         return cls(
@@ -124,15 +119,6 @@ class PlonkProof:
             pis=PlonkProofEvalProofs.deserialize(r, cfg),
             acc_next=acc_mod.Accumulator.deserialize(r, cfg),
         )
-
-    @classmethod
-    def from_bytes(cls, data: bytes, cfg: CurveCfg) -> "PlonkProof":
-        """Parse proof bytes; raises SerdeError on malformed or trailing bytes."""
-        r = Reader(data)
-        out = cls.deserialize(r, cfg)
-        if not r.done():
-            raise SerdeError(f"{len(data) - r.pos} trailing bytes after the proof")
-        return out
 
 
 def _scalar_mds(cfg: CurveCfg):

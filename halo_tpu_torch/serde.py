@@ -11,6 +11,7 @@ Reader refuses what Writer would never write, with a SerdeError (an
 exception, not an assert, so that `python -O` keeps the checks): an early
 end, a field element or abscissa >= the modulus, an option tag other than
 0 or 1, both flag bits set, infinity with x != 0, an x off the curve.
+Serde gives a class with serialize/deserialize its to_bytes/from_bytes.
 """
 
 from __future__ import annotations
@@ -116,3 +117,22 @@ class Writer:
 
     def data(self) -> bytes:
         return bytes(self.out)
+
+
+class Serde:
+    """to_bytes/from_bytes for a class with serialize(w, cfg) and
+    deserialize(r, cfg)."""
+
+    def to_bytes(self, cfg: CurveCfg) -> bytes:
+        w = Writer()
+        self.serialize(w, cfg)
+        return w.data()
+
+    @classmethod
+    def from_bytes(cls, data: bytes, cfg: CurveCfg):
+        """Parse; raises SerdeError on malformed or trailing bytes."""
+        r = Reader(data)
+        out = cls.deserialize(r, cfg)
+        if not r.done():
+            raise SerdeError(f"{len(data) - r.pos} trailing bytes after the {cls.__name__}")
+        return out

@@ -1,5 +1,6 @@
 """The port's prover slice on the CPU: engine ops against host ints, the
-single and the pair IPA open against halo_tpu.pcdl, the golden proof
+single and the pair IPA open against halo_tpu.pcdl, hiding commitments,
+opens and accumulation against halo_tpu.pcdl and halo_tpu.acc, the golden proof
 fixtures (whose round 5 runs the pair open) byte for byte, the same
 fixtures read back by the port's PlonkProof.from_bytes (equal to
 halo_tpu's parse, re-serialized byte for byte, verified; malformed bytes
@@ -22,9 +23,11 @@ import pytest
 import torch
 
 import chip_smoke
+from halo_tpu import acc as hacc
 from halo_tpu import pcdl as hpcdl
 from halo_tpu.curves import PALLAS, VESTA
 from halo_tpu.curves import decompress_point as h_decompress_point
+from halo_tpu.errors import PcdlCheckError as HPcdlCheckError
 from halo_tpu.fields import sqrt as h_sqrt
 from halo_tpu.hostpoly import divide_by_vanishing, poly_eval
 from halo_tpu.ops import ff as jff
@@ -32,9 +35,9 @@ from halo_tpu.plonk import protocol as hprotocol
 from halo_tpu.plonk import trace as htrace
 from halo_tpu.plonk.circuit import TRACE_CURVE
 from halo_tpu.serde import Writer
-from halo_tpu_torch import convert, measure, pcdl
+from halo_tpu_torch import acc, convert, measure, pcdl
 from halo_tpu_torch.curves import decompress_point
-from halo_tpu_torch.errors import SerdeError
+from halo_tpu_torch.errors import PcdlCheckError, SerdeError
 from halo_tpu_torch.fields import sqrt
 from halo_tpu_torch.ops import ipa
 from halo_tpu_torch.parallel.mesh import Mesh
@@ -50,9 +53,11 @@ FIXDIR = Path(__file__).parent / "fixtures"
 CPU = torch.device("cpu")
 
 
-def _eval_proof_bytes(pi, cfg):
+def _to_bytes(obj, cfg):
+    """halo_tpu's Writer over either package's EvalProof, Instance or
+    Accumulator."""
     w = Writer()
-    pi.serialize(w, cfg)
+    obj.serialize(w, cfg)
     return w.data()
 
 
@@ -124,30 +129,89 @@ def _check_ipa_opens_match_host_bytes():
     p0, C0, z0, v0, want0 = _ipa_case(cfg, n, 7)
     p1, C1, z1, v1, want1 = _ipa_case(cfg, n, 8)
     got = ipa.open_without_eval_device(cfg, p0, C0, n - 1, z0, v0, CPU)
-    assert _eval_proof_bytes(got, cfg) == _eval_proof_bytes(want0, cfg)
+    assert _to_bytes(got, cfg) == _to_bytes(want0, cfg)
     pair = ipa.open_pair_without_eval_device(
         cfg, [(p0, C0, z0, v0), (Engine(cfg, CPU).to_dev(p1), C1, z1, v1)], n - 1, CPU)
     for got, want, (C, z, v) in zip(pair, (want0, want1), ((C0, z0, v0), (C1, z1, v1))):
-        assert _eval_proof_bytes(got, cfg) == _eval_proof_bytes(want, cfg)
+        assert _to_bytes(got, cfg) == _to_bytes(want, cfg)
         pcdl.check(cfg, C, n - 1, z, v, got, CPU)
     with pytest.raises(ValueError):
         ipa.open_pair_without_eval_device(cfg, [(p0, C0, z0, v0)], n - 1, CPU)
 
 
-def _check_pcdl_rejects_hiding_and_bad_check():
+def _check_pcdl_hiding_matches_host():
+    """Hiding commitments (an Instance's C), chunked commitments, hiding
+    opens and the accumulation of hiding instances against halo_tpu's,
+    with the same seeded random.Random draws: byte-equal, each package
+    accepting the other's proofs, both rejecting w' + 1, another C_bar
+    and v + 1; the non-hiding bad-eval rejection first."""
     cfg = VESTA
     p = [3, 1, 4, 1]
     C = pcdl.commit(cfg, p, 3, CPU)
     assert C == hpcdl.commit(cfg, p, 3)
-    with pytest.raises(NotImplementedError):
-        pcdl.commit(cfg, p, 3, CPU, w=5)
     pi = pcdl.open_proof(cfg, p, C, 3, 9, CPU)
     v = hpcdl.poly_eval(cfg, p, 9)
     pcdl.check(cfg, C, 3, 9, v, pi, CPU)
-    from halo_tpu_torch.errors import PcdlCheckError
-
     with pytest.raises(PcdlCheckError):
         pcdl.check(cfg, C, 3, 9, (v + 1) % cfg.r, pi, CPU)
+
+    for cfg in (PALLAS, VESTA):
+        for n in (64, 256):
+            d = n - 1
+            rng = random.Random(n)
+            p = [rng.randrange(cfg.r) for _ in range(n - 3)]
+            z, w = rng.randrange(cfg.r), rng.randrange(cfg.r)
+            for coeffs in (p[:45], []):
+                for blinding in (None, w):
+                    assert pcdl.chunked_commit(cfg, coeffs, d, CPU, blinding, 16) == \
+                        hpcdl.chunked_commit(cfg, coeffs, d, blinding, 16)
+
+            mine = pcdl.Instance.open(cfg, p, d, z, CPU, w=w, rng=random.Random(n + 1))
+            ref = hpcdl.Instance.open(cfg, p, d, z, w=w, rng=random.Random(n + 1))
+            raw = _to_bytes(ref, cfg)
+            assert mine.pi.C_bar is not None and mine.to_bytes(cfg) == raw
+            theirs = pcdl.Instance.from_bytes(raw, cfg)
+            assert theirs.to_bytes(cfg) == raw and theirs == mine
+            assert pcdl.EvalProof.from_bytes(mine.pi.to_bytes(cfg), cfg) == mine.pi
+            pcdl.check(cfg, theirs.C, d, z, theirs.v, theirs.pi, CPU)
+            hpcdl.check(cfg, mine.C, d, z, mine.v, mine.pi)
+            for tampered, v_bad in (
+                    (dataclasses.replace(mine.pi, w_prime=(mine.pi.w_prime + 1) % cfg.r), mine.v),
+                    (dataclasses.replace(mine.pi, C_bar=cfg.generator), mine.v),
+                    (mine.pi, (mine.v + 1) % cfg.r)):
+                with pytest.raises(PcdlCheckError):
+                    pcdl.check(cfg, mine.C, d, z, v_bad, tampered, CPU)
+                with pytest.raises(HPcdlCheckError):
+                    hpcdl.check(cfg, mine.C, d, z, v_bad, tampered)
+            with pytest.raises(PcdlCheckError):  # C_bar read back without w'
+                pcdl.succinct_check(cfg, mine.C, d, z, mine.v,
+                                    dataclasses.replace(mine.pi, w_prime=None))
+            if n != 64:
+                continue
+            if cfg is PALLAS:  # p as Montgomery rows on the device
+                rows = pcdl.open_without_eval(cfg, Engine(cfg, CPU).to_dev(p), mine.C, d, z,
+                                              mine.v, CPU, w, rng=random.Random(n + 1))
+                assert rows == mine.pi
+
+            # the port's hiding instance, another and a non-hiding one, accumulated
+            q = [rng.randrange(cfg.r) for _ in range(n)]
+            z2 = rng.randrange(cfg.r)
+            refs = [ref, hpcdl.Instance.open(cfg, q, d, z2, w=w + 1, rng=random.Random(5)),
+                    hpcdl.Instance.open(cfg, q[:40], d, z)]
+            qs = [mine] + [pcdl.Instance.from_bytes(_to_bytes(r, cfg), cfg) for r in refs[1:]]
+            got = acc.prover(cfg, qs, CPU)
+            want = hacc.prover(cfg, refs)
+            assert got.to_bytes(cfg) == _to_bytes(want, cfg)
+            acc.verifier(cfg, qs, got)
+            hacc.verifier(cfg, refs, want)
+            acc.decider(cfg, got, CPU)
+            hacc.decider(cfg, want)
+            qs[1] = dataclasses.replace(qs[1], v=(qs[1].v + 1) % cfg.r)
+            refs[1] = dataclasses.replace(refs[1], v=(refs[1].v + 1) % cfg.r)
+            with pytest.raises(PcdlCheckError):
+                acc.verifier(cfg, qs, got)
+            with pytest.raises(HPcdlCheckError):
+                hacc.verifier(cfg, refs, want)
 
 
 # ---------------- golden fixtures ---------------- #
@@ -221,7 +285,7 @@ def test_engine_ipa_and_golden_proofs():
     for cfg in (PALLAS, VESTA):
         _check_engine_ops_vs_host_ints(cfg)
     _check_ipa_opens_match_host_bytes()
-    _check_pcdl_rejects_hiding_and_bad_check()
+    _check_pcdl_hiding_matches_host()
     _check_golden_proofs_read_back(_check_golden_proof_bytes())
     _check_sqrt_and_decompress_match_halo()
 
